@@ -1,0 +1,21 @@
+"""Config registry: ``get_config(arch_id)`` for the archs the port runs."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, reduced
+
+_PORTED = {
+    "qwen2.5-3b": "repro_torch.configs.qwen2p5_3b",
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _PORTED:
+        raise NotImplementedError(
+            f"{arch_id}: not ported yet (ported: {sorted(_PORTED)})")
+    return importlib.import_module(_PORTED[arch_id]).CONFIG
+
+
+__all__ = ["ModelConfig", "get_config", "reduced"]

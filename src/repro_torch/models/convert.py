@@ -1,0 +1,62 @@
+"""Weights of the reference package in the port's layout.
+
+``params_from_jax`` takes the tree of ``repro.models.layers.pvalues(params)``
+with numpy leaves (per-layer leaves stacked ``[n_layers, ...]``), unstacks
+the layers and turns every ``[d_in, d_out]`` kernel into a ``[d_out, d_in]``
+``F.linear`` weight, so both packages compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import build_segments
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes bf16: exact via fp32
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # own, writable copy
+
+
+def _dense(tree, device) -> Dict[str, torch.Tensor]:
+    out = {"weight": _tensor(np.swapaxes(np.asarray(tree["kernel"]), -1, -2),
+                             device).contiguous()}
+    if "bias" in tree:
+        out["bias"] = _tensor(tree["bias"], device)
+    return out
+
+
+def _convert(tree, device):
+    """Recursively map a (single-layer) reference subtree."""
+    if "kernel" in tree:
+        return _dense(tree, device)
+    if "scale" in tree:
+        return {"scale": _tensor(tree["scale"], device)}
+    return {k: _convert(v, device) for k, v in tree.items()}
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
+                    device="cuda") -> Dict[str, Any]:
+    dev = resolve_device(device)
+    segs = build_segments(cfg)
+    params: Dict[str, Any] = {
+        "embed": {"table": _tensor(tree["embed"]["table"], dev)},
+        "final_norm": {"scale": _tensor(tree["final_norm"]["scale"], dev)},
+        "segments": [[_convert(_layer(seg_tree, i), dev) for i in range(seg.n)]
+                     for seg, seg_tree in zip(segs, tree["segments"])],
+    }
+    if "lm_head" in tree:
+        params["lm_head"] = _dense(tree["lm_head"], dev)
+    return params

@@ -1,0 +1,121 @@
+"""Layer primitives over plain dicts of tensors (the serving subset of
+``repro.models.layers``).
+
+A dense layer is ``{"weight": [d_out, d_in], "bias": [d_out]}``, the
+``F.linear`` layout; ``models.convert`` maps the reference's ``[d_in, d_out]``
+kernels onto it. Initialisers draw from an explicit ``torch.Generator`` with
+the reference's scales (its ``jax.random`` bits cannot be reproduced).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+def normal_param(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
+                 scale: float) -> torch.Tensor:
+    """``scale``·N(0, 1) drawn in fp32 on the generator's device, then cast."""
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(scale).to(dtype)
+
+
+def init_rmsnorm(d: int, device) -> Params:
+    return {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype: torch.dtype) -> Params:
+    return {"table": normal_param(gen, (vocab, d), dtype, 0.02)}
+
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+               bias: bool = False) -> Params:
+    """Fan-in scaled normal weight ``[d_out, d_in]``; zero bias."""
+    p = {"weight": normal_param(gen, (d_out, d_in), dtype,
+                                1.0 / math.sqrt(max(d_in, 1)))}
+    if bias:
+        p["bias"] = torch.zeros(d_out, dtype=dtype, device=gen.device)
+    return p
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype: torch.dtype) -> Params:
+    """Gated MLP weights (up, down, gate)."""
+    return {"up": init_dense(gen, d_model, d_ff, dtype),
+            "down": init_dense(gen, d_ff, d_model, dtype),
+            "gate": init_dense(gen, d_model, d_ff, dtype)}
+
+
+# ---------------------------------------------------------------------------
+# Primitives
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2-style logit soft-capping: cap * tanh(x / cap)."""
+    return torch.tanh(x / cap) * cap
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"]).to(dtype)
+
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ table.T``, returned in fp32.
+
+    The reference asks for an fp32 result of a bf16 product; here a bf16
+    product is rounded to bf16 before the cast, which ``logits_fn``'s bf16
+    cast makes the same value unless a final softcap sits in between.
+    """
+    return F.linear(x, params["table"]).float()
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # [head_dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, n, head_dim]; positions: broadcastable to [..., S]."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)
+    angles = positions[..., None].float() * freqs      # [..., S, hd/2]
+    angles = angles[..., None, :]                      # head axis
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, params["weight"], params.get("bias"))
+
+
+def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """Gated-silu MLP: down(silu(gate(x)) * up(x))."""
+    if activation != "silu":
+        raise NotImplementedError(f"mlp activation {activation!r} not ported yet")
+    up = dense(params["up"], x)
+    h = F.silu(dense(params["gate"], x)) * up
+    return dense(params["down"], h)

@@ -1,0 +1,209 @@
+"""Model construction for the ``attn_mlp`` segment kind: init, hidden forward,
+logits, prefill and decode (``repro.models.model``, the serving subset).
+
+Parameters are nested dicts of tensors. A segment is a list of per-layer
+dicts, and where the reference runs ``lax.scan`` over stacked layers this
+runs a Python loop. Decode caches keep the reference's stacked layout
+(``[n_layers, B, cap, Hkv, hd]`` per segment); each layer writes into its
+slice in place.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models.attention import AttnSpec
+from repro_torch.models.layers import (embed, init_dense, init_embedding,
+                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
+                                       softcap, unembed)
+
+EMPTY_POS = 2 ** 30          # ring-cache "empty slot" position
+
+Caches = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class SegmentSpec:
+    kind: str
+    n: int                    # layers in the segment
+    causal: bool = True
+    window: int = 0           # sliding window (0 = global)
+
+
+def _segment_kind(cfg: ModelConfig) -> str:
+    """The reference's segment kind for ``cfg`` (``build_segments``' order)."""
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "hybrid":
+        return "zamba_group"
+    if cfg.mla is not None:
+        return "mla_mlp"
+    if cfg.moe is not None:
+        return "attn_moe"
+    if cfg.local_global_pattern:
+        return "lg_pair"
+    if cfg.is_encoder_decoder:
+        return "dec_attn"
+    return "attn_mlp"
+
+
+def build_segments(cfg: ModelConfig) -> List[SegmentSpec]:
+    kind = _segment_kind(cfg)
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"{cfg.name}: segment kind {kind!r} not ported yet")
+    return [SegmentSpec("attn_mlp", cfg.n_layers)]
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    d, dt = cfg.d_model, dtype_of(cfg)
+    return {"ln1": init_rmsnorm(d, gen.device),
+            "attn": A.init_gqa(gen, cfg, dt),
+            "ln2": init_rmsnorm(d, gen.device),
+            "mlp": init_mlp(gen, d, cfg.d_ff, dt)}
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device="cuda") -> Dict[str, Any]:
+    """Random weights at the reference's scales, drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    segs = build_segments(cfg)
+    params: Dict[str, Any] = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype_of(cfg)),
+        "final_norm": init_rmsnorm(cfg.d_model, dev),
+        "segments": [[init_block(gen, cfg) for _ in range(s.n)] for s in segs],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
+                                       dtype_of(cfg))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _attn_spec(cfg: ModelConfig, causal=True, window=0) -> AttnSpec:
+    return AttnSpec(causal=causal, window=window,
+                    logit_softcap=cfg.attn_logit_softcap,
+                    scale=cfg.attn_scale_override)
+
+
+def apply_block(params, x, cfg: ModelConfig, *, positions, cache=None,
+                cache_pos=None, window=0, causal=True):
+    """One ``attn_mlp`` block. Returns (x, new_cache)."""
+    eps = cfg.norm_eps
+    spec = _attn_spec(cfg, causal=causal, window=window)
+    h, new_cache = A.gqa_forward(params["attn"], rmsnorm(params["ln1"], x, eps),
+                                 cfg, spec, positions, cache, cache_pos)
+    x = x + h
+    x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, eps), cfg.mlp_activation)
+    return x, new_cache
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    h = embed(params["embed"], tokens)
+    if cfg.scale_embeddings:
+        h = h * math.sqrt(cfg.d_model)
+    return h
+
+
+def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
+                   cache_pos=None, keep_cache=False):
+    """Run all segments. h: [B,S,D]. Returns (h, caches).
+
+    With ``caches`` the layers update them in place and the same list comes
+    back; without, ``keep_cache`` stacks each segment's per-layer (k, v, pos)
+    as the reference's scan does, and otherwise the caches are None."""
+    new_caches = []
+    for i, seg in enumerate(build_segments(cfg)):
+        layer_caches = []
+        for j, blk in enumerate(params["segments"][i]):
+            c = None if caches is None else tuple(t[j] for t in caches[i])
+            h, nc = apply_block(blk, h, cfg, positions=positions, cache=c,
+                                cache_pos=cache_pos, window=seg.window,
+                                causal=seg.causal)
+            layer_caches.append(nc)
+        if caches is not None:
+            new_caches.append(caches[i])
+        elif keep_cache:
+            new_caches.append(tuple(torch.stack(t) for t in zip(*layer_caches)))
+        else:
+            new_caches.append(None)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return h, new_caches
+
+
+def logits_fn(params, cfg: ModelConfig, h):
+    """bf16 logits [..., vocab], as the reference returns them."""
+    if cfg.tie_embeddings or "lm_head" not in params:
+        logits = unembed(params["embed"], h)
+    else:
+        logits = unembed({"table": params["lm_head"]["weight"]}, h)
+    if cfg.final_logit_softcap:
+        logits = softcap(logits, cfg.final_logit_softcap)
+    return logits.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill / decode
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, batch):
+    """Full forward keeping caches. Returns (last-position logits [B,V],
+    caches)."""
+    tokens = batch["tokens"]
+    h = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h, caches = hidden_forward(params, cfg, h, positions=positions,
+                               keep_cache=True)
+    return logits_fn(params, cfg, h[:, -1:])[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, pos: int):
+    """One decode step. token [B,1]; pos the absolute position (int).
+    Returns (logits [B,V], caches), the caches updated in place."""
+    h = embed_tokens(params, cfg, token)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    h, new_caches = hidden_forward(params, cfg, h, positions=positions,
+                                   caches=caches, cache_pos=pos)
+    return logits_fn(params, cfg, h)[:, 0], new_caches
+
+
+# ---------------------------------------------------------------------------
+# Decode-cache construction
+# ---------------------------------------------------------------------------
+
+def _attn_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
+                device) -> Tuple[torch.Tensor, ...]:
+    shp = (n, B, cap, cfg.n_kv_heads, cfg.get_head_dim())
+    return (torch.zeros(shp, dtype=dtype, device=device),
+            torch.zeros(shp, dtype=dtype, device=device),
+            torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
+
+
+def init_decode_caches(cfg: ModelConfig, B: int, seq_cap: int,
+                       dtype=torch.bfloat16, device="cuda") -> Caches:
+    """Zeroed ring caches matching hidden_forward's cache list."""
+    dev = resolve_device(device)
+    caches = []
+    for seg in build_segments(cfg):
+        cap = min(seq_cap, seg.window) if seg.window else seq_cap
+        caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, dev))
+    return caches

@@ -1,0 +1,40 @@
+"""Serving steps: batched prefill + greedy decode with ring KV caches."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as MD
+
+
+def make_prefill(cfg: ModelConfig):
+    def prefill(params, batch):
+        return MD.prefill(params, cfg, batch)
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    def decode(params, caches, token, pos):
+        return MD.decode_step(params, cfg, caches, token, pos)
+    return decode
+
+
+@torch.inference_mode()
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    n_steps: int, seq_cap: Optional[int] = None) -> torch.Tensor:
+    """Prefill-by-decode over ``prompt`` [B,S], then ``n_steps`` greedy tokens
+    [B,n_steps], on ``prompt``'s device. Caches are bf16, as the reference's."""
+    B, S = prompt.shape
+    cap = seq_cap or (S + n_steps)
+    caches = MD.init_decode_caches(cfg, B, cap, device=prompt.device)
+    logits = None
+    for pos in range(S):
+        logits, caches = MD.decode_step(params, cfg, caches,
+                                        prompt[:, pos:pos + 1], pos)
+    out = [torch.argmax(logits, dim=-1)[:, None]]
+    for i in range(n_steps - 1):
+        logits, caches = MD.decode_step(params, cfg, caches, out[-1], S + i)
+        out.append(torch.argmax(logits, dim=-1)[:, None])
+    return torch.cat(out, dim=1)

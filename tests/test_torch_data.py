@@ -1,0 +1,70 @@
+"""Port parity: synthetic tokens and configs equal the reference's."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.data import TokenStream as JaxTokenStream
+from repro.data import make_batch_for as jax_make_batch_for
+from repro_torch.configs import get_config, reduced
+from repro_torch.data import TokenStream, make_batch_for
+
+STREAMS = [  # vocab, batch, seq, seed, step
+    (512, 2, 8, 0, 0),
+    (512, 4, 32, 0, 3),
+    (151936, 4, 32, 0, 0),
+    (49152, 3, 17, 7, 11),
+    (1000, 1, 1, 123, 2 ** 20),
+]
+
+
+@pytest.mark.parametrize("vocab,batch,seq,seed,step", STREAMS)
+def test_token_stream_bit_equal(vocab, batch, seq, seed, step):
+    ref = JaxTokenStream(vocab, batch, seq, seed)
+    port = TokenStream(vocab, batch, seq, seed)
+    np.testing.assert_array_equal(port.batch_np(step), ref.batch_np(step))
+    t = port.batch(step)
+    assert t.dtype == torch.int32 and tuple(t.shape) == (batch, seq)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(ref.batch(step)))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m"])
+@pytest.mark.parametrize("step,seed", [(0, 0), (5, 3)])
+def test_make_batch_for_tokens_bit_equal(arch, step, seed):
+    for cut in (False, True):
+        jcfg, pcfg = jax_get_config(arch), get_config(arch)
+        if cut:
+            jcfg, pcfg = jax_reduced(jcfg), reduced(pcfg)
+        ref = jax_make_batch_for(jcfg, 4, 16, step=step, seed=seed)["tokens"]
+        port = make_batch_for(pcfg, 4, 16, step=step, seed=seed)["tokens"]
+        assert port.dtype == torch.int32
+        np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m"])
+def test_configs_equal_reference(arch):
+    full_ref, full = jax_get_config(arch), get_config(arch)
+    assert dataclasses.asdict(full) == dataclasses.asdict(full_ref)
+    assert dataclasses.asdict(reduced(full)) == dataclasses.asdict(jax_reduced(full_ref))
+    assert full.param_count() == full_ref.param_count()
+    assert full.get_head_dim() == full_ref.get_head_dim()
+
+
+def test_qwen_full_width_size():
+    cfg = get_config("qwen2.5-3b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.get_head_dim(), cfg.d_ff, cfg.vocab_size) == \
+        (36, 2048, 16, 2, 128, 11008, 151936)
+    assert cfg.qkv_bias and cfg.tie_embeddings
+    assert 3.0e9 < cfg.param_count() < 3.2e9
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m", "deepseek-v3-671b",
+                                  "whisper-tiny"])
+def test_unported_arch_raises(arch):
+    jax_get_config(arch)                    # known to the reference
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_config(arch)

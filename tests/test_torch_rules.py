@@ -1,0 +1,113 @@
+"""Rules of the port: what it imports, where it runs, and the serve entry point's
+report."""
+import ast
+import json
+import os
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models.attention import AttnSpec
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+REFERENCE_REPORT_KEYS = {  # repro/launch/serve.py's report
+    "arch", "batch", "prompt_len", "generated", "strategy", "devices", "mesh",
+    "prefill_s", "decode_s", "decode_tok_per_s", "sample_tokens"}
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(os.path.relpath(f, REPO), root) for f in files
+           for root in _imported_roots(f) if root in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_port_has_no_jax_in_sources():
+    """No string route to JAX either (``importlib.import_module("jax")``)."""
+    for f in _port_files():
+        src = open(f).read()
+        assert "import_module(\"jax" not in src and "import_module('jax" not in src, f
+
+
+def test_serve_without_device_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would serve")
+    from repro_torch.launch import serve
+    before = FA.LAUNCHES
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced", "--batch", "1", "--prompt-len", "2", "--gen", "1"])
+    assert FA.LAUNCHES == before
+
+
+def test_init_model_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as MD
+    with pytest.raises(RuntimeError, match="cuda"):
+        MD.init_model(reduced(get_config("qwen2.5-3b")))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    """Only ops.attention sends CPU tensors to the plain version; the
+    kernel's own wrapper raises before building or launching anything."""
+    q = torch.zeros(1, 2, 2, 8)
+    k = torch.zeros(1, 4, 1, 8)
+    pos = torch.arange(4, dtype=torch.int32)
+    before = FA.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.flash_attention(q, k, k, pos[2:], pos, AttnSpec())
+    assert FA.LAUNCHES == before
+
+
+@pytest.mark.parametrize("argv", [
+    ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "4", "--gen", "3"],
+    ["--arch", "smollm-360m", "--reduced", "--device", "cpu", "--batch", "1",
+     "--prompt-len", "3", "--gen", "2", "--seed", "5"],
+])
+def test_serve_cpu_report(argv, capsys):
+    from repro_torch.launch import serve
+    served = serve.main(argv)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert REFERENCE_REPORT_KEYS <= set(report)
+    assert report == served.report
+    gen = int(argv[argv.index("--gen") + 1])
+    B = int(argv[argv.index("--batch") + 1])
+    assert tuple(served.tokens.shape) == (B, gen)
+    assert report["generated"] == gen and report["devices"] == 1
+    assert report["sample_tokens"] == served.tokens[0, :8].tolist()
+    assert torch.isfinite(served.logits.float()).all()
+
+
+def test_serve_dry_run(capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--device", "cpu", "--dry-run"]) is None
+    plan = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert plan["dry_run"] and plan["arch"] == "qwen2.5-3b"
+
+
+def test_kernel_source_is_for_hopper():
+    assert "arch=compute_90a,code=sm_90a" in FA.NVCC_FLAGS
+    src = open(FA.SOURCE).read()
+    assert "__global__" in src and "src/repro/kernels/flash_attention.py" in src
+    assert FA.library_path().startswith(FA.BUILD_DIR)
