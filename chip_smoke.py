@@ -8,20 +8,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
-2. build: compile the flash attention kernel from ``src/repro_torch``;
-3. kernel against its plain version on the card, bf16 and fp32, over the
-   reference's kernel test cases and the serving path's own shapes;
-4. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
-   (batch 4, prompt 32, 32 generated tokens), with the kernel's launches
+2. build: compile every kernel source of ``src/repro_torch`` (one ``nvcc``
+   per source, all started together) and print registers and spills;
+3. flash attention against its plain version on the card, bf16 and fp32,
+   over the reference's kernel test cases, the serving path's shapes and
+   the training path's shape, and the autograd Function's gradients
+   against autograd through the plain version;
+4. the int8 codec kernels against their plain versions, bit for bit: the
+   reference's test cases, half-ulp boundaries, the zero tensor, random
+   sizes, bf16, the training path's shapes (one shared scale over a
+   stacked leaf) and the int8_ef residual;
+5. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
+   (batch 4, prompt 32, 32 generated tokens), with every kernel's launches
    counted over that run;
-5. decode-loop logits against a prefill forward of the same prompt, at
+6. decode-loop logits against a prefill forward of the same prompt, at
    full width: asserted in fp32, reported for the served bf16 model,
    whose decode steps are then profiled (device busy time, idle share,
    top kernels);
-6. timings at the decode shape: kernel, plain version and
-   ``scaled_dot_product_attention`` (the yardstick; the port never calls
-   it), each the median of 50 runs timed with CUDA events, L2 flushed
-   before each run, beside the bound from bytes and operations.
+7. full-width smollm-360m trained through ``repro_torch.launch.train.main``
+   (batch 8, seq 512, 8 steps of adamw with int8_ef compression), with
+   every kernel's launches counted over that run; the losses must be
+   finite and fall;
+8. ``compress_tree`` on the full-width grads of one backward against its
+   plain version, bit for bit; then a train step profiled as in phase 6;
+9. timings: each kernel, its plain version and the one-call library
+   yardstick where there is one (the port never calls it), each the median
+   of 50 runs timed with CUDA events, L2 flushed before each run, beside
+   the bound from bytes and operations.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -30,6 +43,7 @@ limit, the one before that the kernels' JSON; the last line is
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -42,6 +56,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARCH = "qwen2.5-3b"
 BATCH, PROMPT, GEN = 4, 32, 32
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12,      # dense tensor-core bf16
                   "float32": 67e12}        # fp32 outside the tensor cores
@@ -58,6 +74,8 @@ FLASH_CASES = [
     (1, 64, 64, 3, 1, 8, False, 0, 0.0),
     (1, 80, 144, 6, 3, 24, True, 48, 30.0),
 ]
+# The reference's codec test shapes (tests/test_kernels.py QUANT_SHAPES)
+QUANT_SHAPES = [(5, 5, 3, 16), (400, 120), (84,), (257, 129), (8192,)]
 
 
 def fail(msg: str) -> None:
@@ -76,24 +94,34 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def profile_decode(torch, MD, params, cfg, caches, tok, pos, card, steps=4):
-    """Where a decode step's time goes: host time per step without the
-    profiler, then a ``torch.profiler`` trace of the same steps, read from
-    its Chrome-trace export (device busy time, idle share, top kernels)."""
+PORTED_KERNELS = (  # (name, substring of its device kernel's name); first wins
+    ("flash_attention", "flash_fwd_kernel"),
+    ("dequantize_int8", "dequantize_kernel"),
+    ("quantize_absmax", "absmax_kernel"),
+    ("quantize_int8", "quantize_kernel"),
+)
+
+
+def profile_steps(torch, run, steps, what, card):
+    """Where a step's time goes: host time per step without the profiler,
+    then a ``torch.profiler`` trace of as many steps, read from its
+    Chrome-trace export (device busy time, idle share, top kernels, and
+    the port's own kernels). ``run()`` runs one step; it is called once
+    first to warm up."""
     from torch.profiler import ProfilerActivity, profile
 
-    def run(first):
-        nonlocal caches
-        for i in range(steps):
-            _, caches = MD.decode_step(params, cfg, caches, tok, first + i)
+    def run_all():
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
 
-    run(pos)                                       # warm
+    run()                                          # warm
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(pos + steps)
+    run_all()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(pos + 2 * steps)
+        run_all()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -101,8 +129,7 @@ def profile_decode(torch, MD, params, cfg, caches, tok, pos, card, steps=4):
             events = json.load(f)["traceEvents"]
     kernels = sorted((e for e in events if e.get("cat") == "kernel"),
                      key=lambda e: e["ts"])
-    print(f"  decode step at full width, bf16, batch {BATCH}: host wall "
-          f"{wall_ms:.3f} ms/step (no profiler); card {card}")
+    print(f"  {what}: host wall {wall_ms:.3f} ms/step (no profiler); card {card}")
     if not kernels:
         print("  device time: not measured (the trace holds no kernel events)")
         return
@@ -121,6 +148,15 @@ def profile_decode(torch, MD, params, cfg, caches, tok, pos, card, steps=4):
           f"device span, idle share {1 - busy / span:.3f}")
     for name, (n, dur) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"    {dur / steps / 1e3:8.4f} ms/step {n // steps:5d}x/step  {name[:90]}")
+    ported = collections.defaultdict(lambda: [0, 0.0])
+    for name, (n, dur) in by_name.items():
+        label = next((k for k, sub in PORTED_KERNELS if sub in name), None)
+        if label:
+            ported[label][0] += n
+            ported[label][1] += dur
+    print("  the port's kernels: " + ", ".join(
+        f"{k} {ported[k][1] / steps / 1e3:.4f} ms/step ({ported[k][0] // steps}x)"
+        for k, _ in PORTED_KERNELS if k in ported))
 
 
 def main() -> None:
@@ -132,15 +168,31 @@ def main() -> None:
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
 
+    import numpy as np
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
+    from repro_torch.configs import TrainConfig, get_config, reduced
     from repro_torch.data import make_batch_for
+    from repro_torch.dist import compression as C
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch import serve
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as MD
     from repro_torch.models.attention import AttnSpec
+    from repro_torch.train import step as TS
+    from repro_torch.tree import reference_leaves, tree_leaves
 
     dev = torch.device("cuda", 0)
+    counters = {"flash_attention": (FA, "LAUNCHES"),
+                "quantize_absmax": (Q, "ABSMAX_LAUNCHES"),
+                "quantize_int8": (Q, "QUANTIZE_LAUNCHES"),
+                "dequantize_int8": (Q, "DEQUANTIZE_LAUNCHES")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     # ---- 1. environment ---------------------------------------------------
     phase("environment")
@@ -152,16 +204,19 @@ def main() -> None:
     print(f"card (name, power limit): {card}", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
-    phase("build")
+    phase("build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    lib = FA.build()
-    print(f"built {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.1f} s")
-    with open(lib + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "build_s" in line:
-                print("  " + line.strip())
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        libs = list(ex.map(lambda m: m.build(), (FA, Q)))
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        print(f"  {os.path.relpath(lib, REPO)}")
+        with open(lib + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line or "build_s" in line:
+                    print("    " + line.strip())
 
-    # ---- 3. kernel against plain -----------------------------------------
+    # ---- 3. flash attention against plain -------------------------------
     phase("flash_attention kernel vs plain version")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -198,6 +253,11 @@ def main() -> None:
                   arange(0, 1), arange(1, PROMPT + GEN + 1), AttnSpec()))
     cases.append((f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT, hq, hkv, hd),
                   *tail_pos(PROMPT, PROMPT), AttnSpec()))
+    tcfg_full = get_config(TRAIN_ARCH)
+    t_heads = (tcfg_full.n_heads, tcfg_full.n_kv_heads, tcfg_full.get_head_dim())
+    t_shape = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *t_heads)
+    cases.append((f"train{TRAIN_SEQ}", t_shape, *tail_pos(TRAIN_SEQ, TRAIN_SEQ),
+                  AttnSpec(causal=True)))
 
     path_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -218,22 +278,130 @@ def main() -> None:
             if dtype == torch.bfloat16 and label == f"decode_cap{PROMPT + GEN}":
                 path_err = err
 
-    # ---- 4. full-width serve ---------------------------------------------
+    # The training path's autograd Function: forward is the kernel, backward
+    # recomputes the plain version; its grads against autograd through the
+    # plain version on the same inputs and output cotangent.
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (t.requires_grad_(True) for t in inputs(*t_shape, dtype))
+        q_pos, kv_pos = tail_pos(TRAIN_SEQ, TRAIN_SEQ)
+        spec = AttnSpec(causal=True)
+        out = FA.FlashAttention.apply(q, k, v, q_pos, kv_pos, spec)
+        ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
+        go = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+        got = torch.autograd.grad(out, (q, k, v), go)
+        want = torch.autograd.grad(ref, (q, k, v), go)
+        torch.cuda.synchronize()
+        for name, a, b in zip("qkv", got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            ok = torch.allclose(a.float(), b.float(), atol=TOL[dname],
+                                rtol=TOL[dname])
+            print(f"  {dname:8s} train{TRAIN_SEQ} d{name} (autograd Function) "
+                  f"max_abs_err={err:.3e} tol={TOL[dname]:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"FlashAttention backward disagrees: {dname} d{name} {err}")
+        del q, k, v, out, ref, go, got, want
+
+    # ---- 4. codec kernels against plain -----------------------------------
+    phase("int8 codec kernels vs plain versions, bit for bit")
+    codec_err = {"quantize_absmax": 0.0, "quantize_int8": 0.0,
+                 "dequantize_int8": 0.0}
+
+    def bits(t):
+        return t.reshape(-1).view(torch.int32)
+
+    def note(name, a, b):
+        err = (a.double() - b.double()).abs().max().item()
+        codec_err[name] = max(codec_err[name], err)
+        return err
+
+    def codec_check(label, xs):
+        """``xs`` on one shared scale, through the kernels and the plain
+        versions; plus one int8_ef round of the first tensor with a
+        residual carried in. Fails unless every output is equal bit for
+        bit."""
+        acc = Q.new_absmax(dev)
+        for x in xs:
+            Q.absmax_into(x, acc)
+        kq = [Q.quantize_with(x, acc) for x in xs]
+        kd = [Q.dequantize_int8(q, s) for q, s in kq]
+        pam = torch.stack([Q.absmax_plain(x) for x in xs]).amax()
+        pq = [Q.quantize_plain(x, pam) for x in xs]
+        pd = [Q.dequantize_plain(q, s) for q, s in pq]
+        err_in = torch.randn(xs[0].shape, generator=gen, device=dev) * 0.01
+        kef_d, kef_e = C.compress_decompress(xs[0], "int8_ef", err_in)
+        carried = xs[0].float() + err_in
+        pef_q, pef_s = Q.quantize_plain(carried, Q.absmax_plain(carried))
+        pef_d = Q.dequantize_plain(pef_q, pef_s)
+        pef_e = carried - pef_d
+        torch.cuda.synchronize()
+        ok = torch.equal(bits(acc), bits(pam))
+        note("quantize_absmax", acc.reshape(()), pam)
+        for (q, s), (qp, sp), d, dp in zip(kq, pq, kd, pd):
+            ok &= (torch.equal(q, qp) and torch.equal(bits(s), bits(sp))
+                   and torch.equal(bits(d), bits(dp)))
+            note("quantize_int8", q, qp)
+            note("dequantize_int8", d, dp)
+        ok &= (torch.equal(bits(kef_d), bits(pef_d))
+               and torch.equal(bits(kef_e), bits(pef_e)))
+        n = sum(x.numel() for x in xs)
+        print(f"  {label:34s} {len(xs):2d} x {tuple(xs[0].shape)} "
+              f"{str(xs[0].dtype).split('.')[-1]:8s} n={n:10d} "
+              f"scale={kq[0][1].item():.9g} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"codec kernels disagree with their plain versions: {label}")
+
+    rng = np.random.default_rng(0)
+
+    def on_card(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev).to(dtype)
+
+    for shape in QUANT_SHAPES:
+        codec_check(f"reference {shape}", [on_card(rng.standard_normal(shape) * 3.0)])
+    for i in range(20):       # built as tests/test_kernels.py builds them
+        mx = np.float32(rng.uniform(0.5, 5.0))
+        sc = np.float32(mx / np.float32(127.0))
+        x = (rng.integers(-126, 126, 512).astype(np.float32) + np.float32(0.5)) * sc
+        x[0] = mx
+        codec_check(f"half-ulp boundaries {i}", [on_card(x)])
+    codec_check("zero tensor", [torch.zeros(33, device=dev)])
+    for n in sorted(rng.integers(1, 601, 12).tolist()) + [1, 600]:
+        mag = 10.0 ** rng.uniform(-3, 3)
+        codec_check(f"random size {n}", [on_card(rng.standard_normal(n) * mag)])
+    codec_check("unaligned start", [torch.randn(1001, generator=gen, device=dev)[1:]])
+    codec_check("bf16", [on_card(rng.standard_normal((96, 40)) * 2.0, torch.bfloat16)])
+    codec_check("bf16 ragged", [on_card(rng.standard_normal(1003), torch.bfloat16)])
+    V, D, Ff, L = tcfg_full.vocab_size, tcfg_full.d_model, tcfg_full.d_ff, tcfg_full.n_layers
+    codec_check(f"embed grad [{V}, {D}]",
+                [torch.randn(V, D, generator=gen, device=dev) * 1e-3])
+    for name, shape in (("w_gate", (Ff, D)), ("w_up", (Ff, D)), ("w_down", (D, Ff))):
+        mags = torch.logspace(-4, -1, L, device=dev)[torch.randperm(
+            L, generator=gen, device=dev)]
+        codec_check(f"stacked {name} {L} x {shape} shared scale",
+                    [torch.randn(shape, generator=gen, device=dev) * m for m in mags])
+    print(f"  max |kernel - plain|: {codec_err}", flush=True)
+    if any(codec_err.values()):
+        fail(f"codec kernels not bit-identical: {codec_err}")
+    torch.cuda.empty_cache()
+
+    # ---- 5. full-width serve ---------------------------------------------
     phase(f"serve {ARCH} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
     torch.cuda.reset_peak_memory_stats()
-    FA.LAUNCHES = 0
+    reset_counts()
     served = serve.main(["--arch", ARCH, "--batch", str(BATCH),
                          "--prompt-len", str(PROMPT), "--gen", str(GEN),
                          "--device", "cuda"])
-    launches = FA.LAUNCHES
-    expected = (PROMPT + GEN) * full.n_layers
+    serve_counts = read_counts()
+    expected = {"flash_attention": (PROMPT + GEN) * full.n_layers,
+                "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0}
     rep = served.report
-    print(f"  flash_attention launches {launches} (expected {expected}); "
+    print(f"  launches {serve_counts} (expected {expected}); "
           f"prefill_s {rep['prefill_s']} decode_s {rep['decode_s']} "
           f"decode_tok_per_s {rep['decode_tok_per_s']} peak_mem_GB "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}", flush=True)
-    if launches != expected:
-        fail(f"serve launched the kernel {launches} times, expected {expected}")
+    if serve_counts != expected:
+        fail(f"serve launched the kernels {serve_counts}, expected {expected}")
     if not torch.isfinite(served.logits.float()).all():
         fail("serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
@@ -241,7 +409,7 @@ def main() -> None:
         fail(f"serve tokens out of range or shape {tuple(served.tokens.shape)}")
     del served
 
-    # ---- 5. decode against prefill at full width --------------------------
+    # ---- 6. decode against prefill at full width --------------------------
     # fp32 weights, activations and caches hold the decode path (kernel at
     # Sq=1 over the ring cache) to the prefill path (kernel at Sq=32); the
     # logits are bf16 either way (logits_fn), so the bf16 tolerance applies.
@@ -276,12 +444,113 @@ def main() -> None:
         if dname == "float32" and not ok:
             fail(f"decode logits disagree with prefill: max_abs_err={err}")
         if dname == "bfloat16":
-            with torch.inference_mode():
-                profile_decode(torch, MD, params, cfg, caches,
-                               dec.argmax(-1)[:, None], PROMPT, card)
-        del params, caches
+            tok, pos = dec.argmax(-1)[:, None], [PROMPT]
 
-    # ---- 6. timings -------------------------------------------------------
+            def decode_one():
+                nonlocal caches
+                _, caches = MD.decode_step(params, cfg, caches, tok, pos[0])
+                pos[0] += 1
+
+            with torch.inference_mode():
+                profile_steps(torch, decode_one, 4,
+                              f"decode step at full width, bf16, batch {BATCH}", card)
+        del params, caches
+    torch.cuda.empty_cache()
+
+    # ---- 7. full-width training -------------------------------------------
+    phase(f"train {TRAIN_ARCH} at full width (batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
+    train_argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
+                  "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                  "--optimizer", "adamw", "--compression", "int8_ef",
+                  "--remat", "none", "--device", "cuda", "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trained = train.main(train_argv)
+    train_counts = read_counts()
+    # One kernel forward per layer per step (the backward recomputes the
+    # plain version); one launch of each codec kernel per parameter tensor
+    # per step, the tensors grouped into the reference's leaves.
+    # The tree's structure, from a narrow model of the same depth on the CPU.
+    skeleton = MD.init_model(dataclasses.replace(reduced(tcfg_full),
+                                                 n_layers=tcfg_full.n_layers),
+                             seed=0, device="cpu")
+    groups = reference_leaves(skeleton)
+    n_tensors, n_ref_leaves = sum(len(idx) for _, idx in groups), len(groups)
+    expected = {"flash_attention": TRAIN_STEPS * tcfg_full.n_layers,
+                **{k: TRAIN_STEPS * n_tensors for k in
+                   ("quantize_absmax", "quantize_int8", "dequantize_int8")}}
+    losses = trained["losses"]
+    print(f"  launches {train_counts} (expected {expected}: {n_tensors} "
+          f"parameter tensors in {n_ref_leaves} reference leaves); "
+          f"step_ms {trained['step_ms']} tokens_per_s {trained['tokens_per_s']} "
+          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}",
+          flush=True)
+    if train_counts != expected:
+        fail(f"train launched the kernels {train_counts}, expected {expected}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train loss did not fall: {losses}")
+    del trained
+    torch.cuda.empty_cache()
+
+    # ---- 8. compress_tree on full-width grads; a profiled train step ------
+    phase("compress_tree on full-width grads vs plain; profiled train step")
+    tcfg = TrainConfig(optimizer="adamw", grad_compression="int8_ef",
+                       remat_policy="none", total_steps=TRAIN_STEPS,
+                       warmup_steps=TRAIN_STEPS // 10)
+    state = TS.init_train_state(tcfg_full, tcfg, seed=0, device=dev)
+    batch = {k: v.to(dev) for k, v in make_batch_for(
+        tcfg_full, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    _, _, grads = TS._grad_fn(tcfg_full, tcfg)(state.params, batch)
+
+    def plain_compress_tree(g_tree, e_tree):
+        """int8_ef per reference leaf in plain PyTorch; a missing residual
+        starts at zeros, as in ``compress_tree`` (-0.0 + 0.0 is +0.0)."""
+        gl = [g.float() for g in tree_leaves(g_tree)]
+        el = ([torch.zeros_like(g) for g in gl] if e_tree is None
+              else tree_leaves(e_tree))
+        out_g, out_e = list(gl), list(gl)
+        for _, idx in reference_leaves(g_tree):
+            carried = [gl[i] + el[i] for i in idx]
+            am = torch.stack([Q.absmax_plain(c) for c in carried]).amax()
+            for i, c in zip(idx, carried):
+                d = Q.dequantize_plain(*Q.quantize_plain(c, am))
+                out_g[i], out_e[i] = d, c - d
+        return out_g, out_e
+
+    ef = None
+    for rnd in range(2):                     # a fresh residual, then a carried one
+        kg, kef = C.compress_tree(grads, "int8_ef", ef)
+        pg, pef = plain_compress_tree(grads, ef)
+        torch.cuda.synchronize()
+        same = all(torch.equal(bits(a), bits(b)) for a, b in
+                   zip(tree_leaves(kg) + tree_leaves(kef), pg + pef))
+        for a, b in zip(tree_leaves(kg), pg):
+            note("dequantize_int8", a, b)
+        print(f"  round {rnd}: {len(pg)} tensors in {n_ref_leaves} reference "
+              f"leaves, grads and residuals {'bit-identical' if same else 'FAIL'}",
+              flush=True)
+        if not same:
+            fail("compress_tree on the card disagrees with its plain version")
+        ef = kef
+    del grads, kg, kef, pg, pef, ef
+    torch.cuda.empty_cache()
+
+    step_fn = TS.make_train_step(tcfg_full, tcfg)
+    holder = [state]
+
+    def train_one():
+        holder[0], _ = step_fn(holder[0], batch)
+
+    profile_steps(torch, train_one, 2,
+                  f"train step at full width, bf16, batch {TRAIN_BATCH} x "
+                  f"seq {TRAIN_SEQ}, adamw + int8_ef", card)
+    del holder, state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # ---- 9. timings -------------------------------------------------------
     phase("timings (median of 50 runs, CUDA events, L2 flushed before each)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
 
@@ -302,11 +571,18 @@ def main() -> None:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def bound(n_bytes, n_ops, dtype):
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
     rows = {}
-    for label, (B, Sq, Skv) in (("decode_cap64", (BATCH, 1, PROMPT + GEN)),
-                                ("decode_cap4096", (BATCH, 1, 4096)),
-                                (f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT))):
-        q, k, v = inputs(B, Sq, Skv, hq, hkv, hd, torch.bfloat16)
+    for label, (B, Sq, Skv), (nh, nkv, dh) in (
+            ("decode_cap64", (BATCH, 1, PROMPT + GEN), (hq, hkv, hd)),
+            ("decode_cap4096", (BATCH, 1, 4096), (hq, hkv, hd)),
+            (f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT), (hq, hkv, hd)),
+            (f"train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), t_heads)):
+        q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, torch.bfloat16)
         q_pos, kv_pos = tail_pos(Sq, Skv)
         spec = AttnSpec()
         mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
@@ -320,33 +596,82 @@ def main() -> None:
         lib_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (q, k, v, ref, q_pos, kv_pos))
-        n_ops = 4 * B * hq * Sq * Skv * hd
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        n_ops = 4 * B * nh * dh * int(mask.sum().item())   # unmasked pairs only
+        bound_ms, bound_by = bound(n_bytes, n_ops, "bfloat16")
         row = {
             "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
             "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
             "library_ms": time_ms(sdpa),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
         rows[label] = row
-        print(f"  {label:16s} q [{B},{Sq},{hq},{hd}] kv [{B},{Skv},{hkv},{hd}] bf16: "
+        print(f"  {label:16s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] bf16: "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"sdpa {row['library_ms']:.4f} ms (|sdpa-plain| {lib_err:.2e}), "
               f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
               f"({n_bytes} B, {n_ops} flop); card {card}", flush=True)
+        del q, k, v, ref, qt, kt, vt, mask
+
+    # Codec kernels at the largest tensor the train step hands them, the
+    # embedding's grad [vocab, d_model] in fp32 (one launch each).
+    x = torch.randn(V, D, generator=gen, device=dev)
+    N = x.numel()
+    acc = Q.new_absmax(dev)
+    Q.absmax_into(x, acc)
+    qx, sx = Q.quantize_with(x, acc)
+    pam = Q.absmax_plain(x)
+    codec_work = {   # (kernel, plain, library or None, bytes, operations)
+        "quantize_absmax": (lambda: Q.absmax_into(x, acc),
+                            lambda: Q.absmax_plain(x),
+                            lambda: torch.linalg.vector_norm(x, float("inf")),
+                            4 * N + 4, 2 * N),
+        "quantize_int8": (lambda: Q.quantize_with(x, acc),
+                          lambda: Q.quantize_plain(x, pam),
+                          None, 4 * N + 4 + N + 4, 4 * N),
+        "dequantize_int8": (lambda: Q.dequantize_int8(qx, sx),
+                            lambda: Q.dequantize_plain(qx, sx),
+                            lambda: torch.mul(qx, sx), N + 4 + 4 * N, 2 * N),
+    }
+    for name, (kern, plain, lib_fn, n_bytes, n_ops) in codec_work.items():
+        bound_ms, bound_by = bound(n_bytes, n_ops, "float32")
+        rows[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                      "library_ms": None if lib_fn is None else time_ms(lib_fn),
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        r = rows[name]
+        lib_txt = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"  {name:16s} [{V},{D}] fp32: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib_txt}, bound "
+              f"{r['bound_ms']:.6f} ms by {bound_by} ({n_bytes} B, {n_ops} op); "
+              f"card {card}", flush=True)
 
     path = rows["decode_cap64"]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:122",
-        "launches": launches, "max_abs_err": path_err,
+        "launches": serve_counts["flash_attention"],
+        "launches_by_path": {"serve": serve_counts["flash_attention"],
+                             "train": train_counts["flash_attention"]},
+        "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"],
     }]
+    for name, line in (("quantize_absmax", 92), ("quantize_int8", 101),
+                       ("dequantize_int8", 120)):
+        r = rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
+            "replaces": f"src/repro/kernels/quantize.py:{line}",
+            "launches": train_counts[name],
+            "launches_by_path": {"serve": serve_counts[name],
+                                 "train": train_counts[name]},
+            "max_abs_err": codec_err[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

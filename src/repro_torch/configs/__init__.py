@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.base import ModelConfig, TrainConfig, reduced
 
 _PORTED = {
     "qwen2.5-3b": "repro_torch.configs.qwen2p5_3b",
@@ -18,4 +18,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return importlib.import_module(_PORTED[arch_id]).CONFIG
 
 
-__all__ = ["ModelConfig", "get_config", "reduced"]
+__all__ = ["ModelConfig", "TrainConfig", "get_config", "reduced"]

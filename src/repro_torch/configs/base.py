@@ -1,7 +1,8 @@
-"""Configuration dataclasses (copy of ``repro.configs.base``, the model part).
+"""Configuration dataclasses (copy of ``repro.configs.base``, the model and
+training parts).
 
-``ModelConfig`` and ``reduced`` are kept field for field, so a config of
-the port and one of the reference compare equal as dicts and
+``ModelConfig``, ``TrainConfig`` and ``reduced`` are kept field for field,
+so a config of the port and one of the reference compare equal as dicts and
 ``param_count`` gives the same number.
 """
 from __future__ import annotations
@@ -180,6 +181,29 @@ class ModelConfig:
         if self.shared_attn_every:
             total += attn_params() + dense_mlp(self.d_ff)
         return int(total)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-run hyperparameters (extrinsic parameters in paper terms)."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"        # adamw | sgd | adafactor
+    remat_policy: str = "full"      # none | full | dots
+    zero_stage: int = 3             # 0: replicated, 1: opt-state, 3: params too
+    opt_state_dtype: str = "float32"
+    grad_compression: str = "none"  # none | bf16 | int8_ef
+    ce_impl: str = "gather"         # gather | onehot (sharded-vocab-safe CE)
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
 
 
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 64,

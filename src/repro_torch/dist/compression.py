@@ -1,0 +1,116 @@
+"""Gradient wire-format compression: bf16, int8, int8 + error feedback
+(``repro.dist.compression``, the local codec; the collectives come with the
+distributed slice).
+
+  * ``quantize_int8`` — symmetric max-abs int8 with a single fp32 scale;
+    round-to-nearest, so |x - q·s| <= s/2 elementwise. On the card it runs
+    as the CUDA kernels of ``kernels.quantize``, on the CPU as their plain
+    versions (``kernels.ops``).
+  * ``compress_decompress`` — one gradient through the wire format and
+    back, with optional error feedback: the residual of step t is added to
+    the gradient of step t+1.
+  * ``compress_tree`` / ``init_error_feedback`` — the train step's tree
+    plumbing.
+
+One scale per reference leaf. The reference stacks the layers of a segment
+into one ``[n_layers, ...]`` leaf and ``compress_tree`` quantizes each leaf
+on one scale, the max-abs over all its layers; the port keeps one tensor per
+layer, so ``compress_tree`` gathers them back by reference leaf
+(``tree.reference_leaves``) and quantizes each group on one shared scale
+(``compress_leaf``). A scale per layer tensor would be a different codec.
+
+``WIRE_BITS`` maps each mode to its bits per value, the performance
+model's compression extrinsic.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.tree import (reference_leaves, tree_leaves, tree_map,
+                              tree_unflatten)
+
+COMPRESSIONS = ("none", "bf16", "int8", "int8_ef")
+
+# Bits per value on the wire; the perf model's compression extrinsic.
+WIRE_BITS = {"none": 32, "bf16": 16, "int8": 8, "int8_ef": 8}
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric max-abs quantization -> (int8 values, fp32 scale)."""
+    return ops.quantize_int8(x)
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return ops.dequantize_int8(q, scale)
+
+
+def compress_leaf(gs: Sequence[torch.Tensor], mode: str,
+                  errs: Optional[Sequence[torch.Tensor]] = None
+                  ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
+    """``compress_decompress`` of one reference leaf held as the tensors
+    ``gs`` (its layers), quantized on one shared scale. Returns
+    (decompressed, new_errs), both lists in ``gs``' order."""
+    if mode == "none":
+        return list(gs), errs
+    gfs = [g.float() for g in gs]
+    if mode == "bf16":
+        return [g.to(torch.bfloat16).float() for g in gfs], errs
+    if mode == "int8":
+        qs, s = ops.quantize_int8_shared(gfs)
+        return [ops.dequantize_int8(q, s) for q in qs], errs
+    if mode == "int8_ef":
+        carried = (gfs if errs is None
+                   else [g + e.float() for g, e in zip(gfs, errs)])
+        qs, s = ops.quantize_int8_shared(carried)
+        ds = [ops.dequantize_int8(q, s) for q in qs]
+        return ds, [c - d for c, d in zip(carried, ds)]
+    raise ValueError(f"unknown compression mode {mode!r}; "
+                     f"have {COMPRESSIONS}")
+
+
+def compress_decompress(g: torch.Tensor, mode: str,
+                        err: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Send ``g`` through the wire format; returns (decompressed, new_err).
+
+    ``err`` is the error-feedback residual carried between steps (only
+    used and updated in "int8_ef" mode; pass ``None`` for a fresh start).
+    """
+    ds, es = compress_leaf([g], mode, None if err is None else [err])
+    return ds[0], None if es is None else es[0]
+
+
+def init_error_feedback(params):
+    """fp32 zero residuals, one per parameter tensor."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+@torch.no_grad()
+def compress_tree(grads, mode: str, ef=None):
+    """``compress_decompress`` per reference leaf -> (new_grads, new_ef).
+
+    ``ef`` (when present) is the ``init_error_feedback`` tree; in "int8_ef"
+    mode a missing ``ef`` is initialized to zeros and returned, so the
+    residual is never silently dropped — callers must thread it.
+    """
+    if mode in (None, "none"):
+        return grads, ef
+    if mode == "int8_ef" and ef is None:
+        ef = init_error_feedback(grads)
+    g_leaves = tree_leaves(grads)
+    e_leaves = None if ef is None else tree_leaves(
+        tree_map(lambda g, e: e, grads, ef))            # in grads' order
+    new_g, new_e = list(g_leaves), None if ef is None else list(e_leaves)
+    for _, idx in reference_leaves(grads):
+        errs = None if ef is None else [e_leaves[i] for i in idx]
+        ds, es = compress_leaf([g_leaves[i] for i in idx], mode, errs)
+        for j, i in enumerate(idx):
+            new_g[i] = ds[j]
+            if es is not None:
+                new_e[i] = es[j]
+    return (tree_unflatten(grads, new_g),
+            None if ef is None else tree_unflatten(grads, new_e))

@@ -15,25 +15,20 @@ the tensors' device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import time
 
 import torch
 
+from repro_torch.kernels import nvcc
 from repro_torch.models.layers import NEG_INF, softcap
 
 PAD_POS = 2 ** 30    # sentinel position for padded / empty KV slots
 MAX_HEAD_DIM = 256
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "flash_attention.cu")
-BUILD_DIR = os.path.join(_HERE, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = os.path.join(nvcc.CSRC, "flash_attention.cu")
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.NVCC_FLAGS
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -81,43 +76,14 @@ def attention_plain(q, k, v, q_pos, kv_pos, spec) -> torch.Tensor:
 # Build and load
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); "
-                       "the flash attention kernel is built from source")
-
-
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"libflash_attention-{digest[:16]}.so")
+    return nvcc.library_path(SOURCE)
 
 
 def build() -> str:
     """Compile the kernel unless a build of this source exists; return the
-    library path. The compiler's output (registers, spills) is kept beside
-    it as ``<library>.log``."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}"
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
-    with open(path + ".log", "w") as f:
-        f.write(f"{log}\nbuild_s={time.perf_counter() - t0:.3f}\n")
-    os.replace(tmp, path)
-    return path
+    library path (``kernels.nvcc``)."""
+    return nvcc.build(SOURCE)
 
 
 def _library():
@@ -205,3 +171,37 @@ def flash_attention(q, k, v, q_pos, kv_pos, spec) -> torch.Tensor:
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
     LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the kernel and whose backward recomputes
+    the plain version under autograd and differentiates that.
+
+    The reference has no backward kernel either (its Pallas kernel is
+    forward-only); its CPU path differentiates the blockwise attention
+    under ``jax.checkpoint``, which recomputes it in the backward
+    (``repro.models.attention.attend_blockwise``). So nothing of the
+    forward is saved but the inputs, and the backward holds the O(Sq·Skv)
+    scores of one call at a time. A backward kernel is later work.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, spec):
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+        ctx.spec = spec
+        return flash_attention(q, k, v, q_pos, kv_pos, spec)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, q_pos, kv_pos = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
+            out = attention_plain(*qkv, q_pos, kv_pos, ctx.spec)
+            wrt = [t for t, n in zip(qkv, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, grad_out))
+        return (*(next(got) if n else None for n in need), None, None, None)

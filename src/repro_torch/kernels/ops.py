@@ -3,11 +3,48 @@ any other goes to the kernel, which launches or raises. There is no switch
 and no fallback from a failed launch to the plain version."""
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
+import torch
+
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import quantize as Q
 
 
 def attention(q, k, v, q_pos, kv_pos, spec):
-    """GQA attention forward (``repro.kernels.ops.attention``)."""
+    """GQA attention (``repro.kernels.ops.attention``). On the card the
+    forward is the kernel and the backward recomputes the plain version
+    (``FA.FlashAttention``)."""
     if q.device.type == "cpu":
         return FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
-    return FA.flash_attention(q, k, v, q_pos, kv_pos, spec)
+    return FA.FlashAttention.apply(q, k, v, q_pos, kv_pos, spec)
+
+
+def quantize_int8_shared(xs: Sequence[torch.Tensor]
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Symmetric max-abs int8 of several tensors on ONE scale, the max-abs
+    over all of them: (int8 values per tensor, 0-d fp32 scale). On the card,
+    one absmax launch per tensor into one device scalar, then one quantize
+    launch per tensor."""
+    if xs[0].device.type == "cpu":
+        absmax = torch.stack([Q.absmax_plain(x) for x in xs]).amax()
+        out = [Q.quantize_plain(x, absmax) for x in xs]
+    else:
+        absmax = Q.new_absmax(xs[0].device)
+        for x in xs:
+            Q.absmax_into(x, absmax)
+        out = [Q.quantize_with(x, absmax) for x in xs]
+    return [q for q, _ in out], out[0][1]
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, fp32 scale) of one tensor
+    (``repro.dist.compression.quantize_int8``)."""
+    (q,), scale = quantize_int8_shared([x])
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return Q.dequantize_plain(q, scale)
+    return Q.dequantize_int8(q, scale)

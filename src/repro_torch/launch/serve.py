@@ -40,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -79,13 +79,13 @@ def main(argv=None):
     B, S = prompt.shape
     caches = MD.init_decode_caches(cfg, B, S + args.gen, device=device)
 
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     logits = None
     for pos in range(S):                       # batched prefill-by-decode
         logits, caches = MD.decode_step(params, cfg, caches,
                                         prompt[:, pos:pos + 1], pos)
-    _sync(device)
+    sync(device)
     t_prefill = time.perf_counter() - t0
 
     out_tokens = []
@@ -95,7 +95,7 @@ def main(argv=None):
         out_tokens.append(tok)
         logits, caches = MD.decode_step(params, cfg, caches, tok, S + i)
         tok = torch.argmax(logits, dim=-1)[:, None]
-    _sync(device)
+    sync(device)
     t_decode = time.perf_counter() - t0
 
     gen = torch.cat(out_tokens, dim=1)

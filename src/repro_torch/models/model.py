@@ -1,5 +1,6 @@
 """Model construction for the ``attn_mlp`` segment kind: init, hidden forward,
-logits, prefill and decode (``repro.models.model``, the serving subset).
+logits, the training loss, prefill and decode (``repro.models.model``, the
+serving and single-device training subset).
 
 Parameters are nested dicts of tensors. A segment is a list of per-layer
 dicts, and where the reference runs ``lax.scan`` over stacked layers this
@@ -14,6 +15,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -23,6 +25,7 @@ from repro_torch.models.layers import (embed, init_dense, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
                                        softcap, unembed)
 
+MASK_ID = -1                 # label value that is excluded from the loss
 EMPTY_POS = 2 ** 30          # ring-cache "empty slot" position
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -124,17 +127,39 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return h
 
 
+def _remat_block(blk, h, cfg: ModelConfig, seg: SegmentSpec, positions,
+                 remat: str):
+    """One training block under the remat policy (``_remat_wrap``): "none"
+    keeps its activations for the backward, "full" keeps only its input and
+    recomputes it (``torch.utils.checkpoint``)."""
+    def run(x):
+        return apply_block(blk, x, cfg, positions=positions,
+                           window=seg.window, causal=seg.causal)[0]
+
+    if remat == "none":
+        return run(h)
+    if remat == "dots":
+        raise NotImplementedError("remat 'dots' (save the matmul outputs, "
+                                  "recompute the rest) not ported yet")
+    return torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
+
+
 def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
-                   cache_pos=None, keep_cache=False):
+                   cache_pos=None, keep_cache=False, remat="none"):
     """Run all segments. h: [B,S,D]. Returns (h, caches).
 
     With ``caches`` the layers update them in place and the same list comes
     back; without, ``keep_cache`` stacks each segment's per-layer (k, v, pos)
-    as the reference's scan does, and otherwise the caches are None."""
+    as the reference's scan does, and otherwise the caches are None.
+    ``remat`` applies to the training forward (no caches)."""
+    train = caches is None and not keep_cache
     new_caches = []
     for i, seg in enumerate(build_segments(cfg)):
         layer_caches = []
         for j, blk in enumerate(params["segments"][i]):
+            if train:
+                h = _remat_block(blk, h, cfg, seg, positions, remat)
+                continue
             c = None if caches is None else tuple(t[j] for t in caches[i])
             h, nc = apply_block(blk, h, cfg, positions=positions, cache=c,
                                 cache_pos=cache_pos, window=seg.window,
@@ -159,6 +184,59 @@ def logits_fn(params, cfg: ModelConfig, h):
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, impl: str = "gather"):
+    """logits [..., V] (bf16 ok), labels int (MASK_ID = ignore).
+    Returns (sum_ce_fp32, n_tokens).
+
+    impl="gather" takes the label's log-prob by index; impl="onehot" by an
+    iota == label mask and a sum over the vocab, which the reference uses for
+    a vocab-sharded layout (the same numbers here)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = torch.clamp(labels, min=0).long()
+    if impl == "onehot":
+        iota = torch.arange(lf.shape[-1], device=lf.device)
+        ll = torch.where(iota == lab[..., None], lf,
+                         torch.zeros((), device=lf.device)).sum(dim=-1)
+    else:
+        ll = torch.gather(lf, -1, lab[..., None])[..., 0]
+    mask = labels != MASK_ID
+    ce = (lse - ll) * mask
+    return ce.sum(), mask.sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: str = "full", ce_impl: str = "gather"):
+    """Training loss. batch: tokens [B,S]; optional labels (default:
+    next-token). Returns (loss, metrics)."""
+    if (cfg.frontend != "none" or cfg.is_encoder_decoder or cfg.mtp_depth):
+        raise NotImplementedError(f"{cfg.name}: frontend, encoder and MTP "
+                                  "losses not ported yet")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    h, _ = hidden_forward(params, cfg, h, positions=positions, remat=remat)
+    if "labels" in batch:
+        labels = batch["labels"]
+    else:
+        labels = torch.cat([tokens[:, 1:],
+                            torch.full((B, 1), MASK_ID, dtype=tokens.dtype,
+                                       device=tokens.device)], dim=1)
+    logits = logits_fn(params, cfg, h)
+    ce_sum, n_tok = cross_entropy(logits, labels, impl=ce_impl)
+    loss = ce_sum / torch.clamp(n_tok, min=1)
+    aux = torch.zeros((), device=loss.device)     # attn_mlp has no aux loss
+    metrics = {"ce": loss, "aux": aux, "tokens": n_tok}
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

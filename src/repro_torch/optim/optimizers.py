@@ -1,0 +1,185 @@
+"""Optimizers over the port's parameter trees (``repro.optim.optimizers``).
+
+AdamW and SGD are elementwise, so they run tensor by tensor. Adafactor is
+not: its factored second moment of a stacked ``[n_layers, ...]`` reference
+leaf averages over the leaf's last two axes (for a stacked norm scale
+``[n_layers, d]`` that crosses layers) and its update clipping takes one RMS
+over the whole leaf. So it stacks each reference leaf back into the
+reference's layout (``tree.reference_leaves``; dense weights transposed to
+``[d_in, d_out]``), updates it there and keeps its state in that layout.
+
+Updates are functional, as in the reference: new tensors come back and the
+inputs are left as they are.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.tree import (reference_leaves, tree_leaves, tree_map,
+                              tree_unflatten)
+
+
+class OptState(NamedTuple):
+    step: int        # updates applied so far (a host integer)
+    mu: Any          # first moment (or momentum); tree or None
+    nu: Any          # second moment; tree, adafactor's list, or None
+
+
+def _state_dtype(tcfg: TrainConfig) -> torch.dtype:
+    return getattr(torch, tcfg.opt_state_dtype)
+
+
+def tree_global_norm(tree) -> torch.Tensor:
+    """0-d fp32 tensor on the leaves' device."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale the tree to a global norm of at most ``max_norm``; each grad
+    comes back in its own dtype. Returns (grads, norm)."""
+    norm = tree_global_norm(grads)
+    scale = torch.clamp(torch.full_like(norm, max_norm)
+                        / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_init(params, tcfg: TrainConfig) -> OptState:
+    dt = _state_dtype(tcfg)
+    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    return OptState(0, tree_map(zeros, params), tree_map(zeros, params))
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state: OptState, tcfg: TrainConfig,
+                 lr: float) -> Tuple[Any, OptState]:
+    b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
+    step = state.step + 1
+    c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
+    c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        m_new = b1 * m.float() + (1 - b1) * gf
+        v_new = b2 * v.float() + (1 - b2) * gf * gf
+        update = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+        update = update + wd * p.float()
+        new_p = p.float() - lr * update
+        return [new_p.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)]
+
+    out = tree_leaves(tree_map(upd, params, grads, state.mu, state.nu))
+    new_p, new_m, new_v = (tree_unflatten(params, out[i::3]) for i in range(3))
+    return new_p, OptState(step, new_m, new_v)
+
+
+# ---------------------------------------------------------------------------
+# SGD (momentum)
+# ---------------------------------------------------------------------------
+
+def sgd_init(params, tcfg: TrainConfig) -> OptState:
+    dt = _state_dtype(tcfg)
+    return OptState(0, tree_map(
+        lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params), None)
+
+
+@torch.no_grad()
+def sgd_update(params, grads, state: OptState, tcfg: TrainConfig, lr: float):
+    b1 = tcfg.beta1
+
+    def upd(p, g, m):
+        gf = g.float() + tcfg.weight_decay * p.float()
+        m_new = b1 * m.float() + gf
+        new_p = p.float() - lr * m_new
+        return [new_p.to(p.dtype), m_new.to(m.dtype)]
+
+    out = tree_leaves(tree_map(upd, params, grads, state.mu))
+    return (tree_unflatten(params, out[0::2]),
+            OptState(state.step + 1, tree_unflatten(params, out[1::2]), None))
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moment; for ≥100B runs)
+# ---------------------------------------------------------------------------
+
+def _to_reference(path, tensors):
+    """One reference leaf from the port's tensors: dense weights back to
+    ``[d_in, d_out]``, segment layers stacked on a leading axis."""
+    ts = [t.float().transpose(-1, -2) if path[-1] == "weight" else t.float()
+          for t in tensors]
+    return torch.stack(ts) if path[0] == "segments" else ts[0]
+
+
+def _from_reference(path, x):
+    xs = list(x.unbind(0)) if path[0] == "segments" else [x]
+    return [t.transpose(-1, -2) if path[-1] == "weight" else t for t in xs]
+
+
+def adafactor_init(params, tcfg: TrainConfig) -> OptState:
+    """``nu``: one tuple per reference leaf (``tree.reference_leaves``
+    order), ``(row, col)`` for a leaf of rank >= 2 and ``(full,)`` otherwise,
+    in the reference's shapes."""
+    leaves = tree_leaves(params)
+    nu = []
+    for path, idx in reference_leaves(params):
+        ref = _to_reference(path, [leaves[i] for i in idx])
+        s, dev = ref.shape, ref.device
+        if len(s) >= 2:
+            nu.append((torch.zeros(s[:-1], device=dev),
+                       torch.zeros(s[:-2] + s[-1:], device=dev)))
+        else:
+            nu.append((torch.zeros(s, device=dev),))
+    return OptState(0, None, nu)
+
+
+@torch.no_grad()
+def adafactor_update(params, grads, state: OptState, tcfg: TrainConfig,
+                     lr: float):
+    eps = 1e-30
+    step = state.step + 1
+    decay = float(np.float32(1.0) - np.float32(step) ** np.float32(-0.8))
+    leaves = tree_leaves(params)
+    gleaves = tree_leaves(tree_map(lambda p, g: g, params, grads))
+    new_leaves = list(leaves)
+    new_nu = []
+    for (path, idx), nu in zip(reference_leaves(params), state.nu):
+        gf = _to_reference(path, [gleaves[i] for i in idx])
+        g2 = gf * gf + eps
+        if gf.dim() >= 2:
+            row, col = nu
+            r = decay * row + (1 - decay) * g2.mean(dim=-1)
+            c = decay * col + (1 - decay) * g2.mean(dim=-2)
+            rc = r / torch.clamp(r.mean(dim=-1, keepdim=True), min=eps)
+            v = rc[..., None] * c[..., None, :]
+            new_nu.append((r, c))
+        else:
+            (full,) = nu
+            v = decay * full + (1 - decay) * g2
+            new_nu.append((v,))
+        update = gf / torch.sqrt(torch.clamp(v, min=eps))
+        # update clipping (RMS <= 1)
+        rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
+        update = update / torch.clamp(rms, min=1.0)
+        p_ref = _to_reference(path, [leaves[i] for i in idx])
+        update = update + tcfg.weight_decay * p_ref
+        new_p = p_ref - lr * update
+        for i, t in zip(idx, _from_reference(path, new_p)):
+            new_leaves[i] = t.to(leaves[i].dtype).contiguous()
+    return tree_unflatten(params, new_leaves), OptState(step, None, new_nu)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+def make_optimizer(name: str) -> Tuple[Callable, Callable]:
+    return {"adamw": (adamw_init, adamw_update),
+            "sgd": (sgd_init, sgd_update),
+            "adafactor": (adafactor_init, adafactor_update)}[name]

@@ -1,1 +1,1 @@
-"""Serving steps of the port (training is not ported yet)."""
+"""Serving and single-device training steps of the port."""

@@ -170,3 +170,57 @@ def test_gqa_forward_ring_cache_matches_reference(n_heads, n_kv):
     np.testing.assert_allclose(pcv.numpy(), np.asarray(jcv), atol=1e-5, rtol=1e-5)
     np.testing.assert_array_equal(pcpos.numpy(), np.asarray(jcpos))
     assert pcpos[5] == pos
+
+
+@pytest.mark.parametrize("case", [(2, 48, 48, 4, 2, 16, True, 0, 0.0),
+                                  (1, 40, 72, 6, 3, 8, True, 24, 30.0)])
+def test_plain_attention_grads_match_blockwise_reference(case):
+    """The backward that ``FA.FlashAttention`` recomputes is autograd through
+    ``attention_plain``: held against ``jax.grad`` of the reference's
+    ``attend_blockwise`` (block 16, so its checkpointed blocks run), fp32."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, cap = case
+    arrays = _qkv(B, Sq, Skv, Hq, Hkv, hd, seed=4)
+    go = np.random.default_rng(5).standard_normal((B, Sq, Hq, hd)).astype(np.float32)
+    q_pos = np.arange(Skv - Sq, Skv, dtype=np.int32)
+    kv_pos = np.arange(Skv, dtype=np.int32)
+    jspec = JA.AttnSpec(causal=causal, window=window, logit_softcap=cap)
+
+    def jloss(q, k, v):
+        o = JA.attend_blockwise(q, k, v, jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                                jspec, block=16)
+        return jnp.sum(o * jnp.asarray(go))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*[jnp.asarray(a) for a in arrays])
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = FA.attention_plain(*qkv, torch.from_numpy(q_pos), torch.from_numpy(kv_pos),
+                             A.AttnSpec(causal=causal, window=window,
+                                        logit_softcap=cap))
+    grads = torch.autograd.grad(out, qkv, torch.from_numpy(go))
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(_f32(g), _f32(jg), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("need", [(True, True, True), (True, False, False),
+                                  (False, True, True)])
+def test_flash_function_backward_recomputes_plain(monkeypatch, need):
+    """``FA.FlashAttention``'s backward on the CPU, with the plain version
+    standing in for the kernel's forward: its grads are autograd's through
+    ``attention_plain``, and None for inputs that need none."""
+    monkeypatch.setattr(FA, "flash_attention", FA.attention_plain)
+    arrays = _qkv(2, 12, 12, 6, 2, 8, seed=6)
+    go = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (2, 12, 6, 8)).astype(np.float32))
+    pos = torch.arange(12, dtype=torch.int32)
+    spec = A.AttnSpec(causal=True)
+    a = [torch.from_numpy(x).requires_grad_(n) for x, n in zip(arrays, need)]
+    b = [torch.from_numpy(x).requires_grad_(n) for x, n in zip(arrays, need)]
+    out = FA.FlashAttention.apply(*a, pos, pos, spec)
+    ref = FA.attention_plain(*b, pos, pos, spec)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    (out * go).sum().backward()
+    (ref * go).sum().backward()
+    for x, y, n in zip(a, b, need):
+        if n:
+            torch.testing.assert_close(x.grad, y.grad, atol=0, rtol=0)
+        else:
+            assert x.grad is None

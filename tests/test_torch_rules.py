@@ -1,5 +1,5 @@
-"""Rules of the port: what it imports, where it runs, and the serve entry point's
-report."""
+"""Rules of the port: what it imports, where it runs, and the serve and train
+entry points' reports."""
 import ast
 import json
 import os
@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import nvcc
+from repro_torch.kernels import quantize as Q
 from repro_torch.models.attention import AttnSpec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -15,6 +17,9 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 REFERENCE_REPORT_KEYS = {  # repro/launch/serve.py's report
     "arch", "batch", "prompt_len", "generated", "strategy", "devices", "mesh",
     "prefill_s", "decode_s", "decode_tok_per_s", "sample_tokens"}
+REFERENCE_TRAIN_KEYS = {  # repro/launch/train.py's report, single device
+    "arch", "steps", "first_loss", "final_loss", "wall_s", "losses",
+    "strategy", "mesh"}
 
 
 def _port_files():
@@ -111,3 +116,74 @@ def test_kernel_source_is_for_hopper():
     src = open(FA.SOURCE).read()
     assert "__global__" in src and "src/repro/kernels/flash_attention.py" in src
     assert FA.library_path().startswith(FA.BUILD_DIR)
+
+
+def _codec_launches():
+    return Q.ABSMAX_LAUNCHES, Q.QUANTIZE_LAUNCHES, Q.DEQUANTIZE_LAUNCHES
+
+
+@pytest.mark.parametrize("call", ["absmax", "quantize", "dequantize"])
+def test_codec_wrappers_refuse_cpu_tensors(call):
+    """Only kernels.ops sends CPU tensors to the plain versions; the codec's
+    own wrappers raise before building or launching anything."""
+    x = torch.ones(8)
+    acc = torch.zeros(1)
+    before = _codec_launches()
+    fn = {"absmax": lambda: Q.absmax_into(x, acc),
+          "quantize": lambda: Q.quantize_with(x, acc),
+          "dequantize": lambda: Q.dequantize_int8(x.to(torch.int8),
+                                                  torch.ones(()))}[call]
+    with pytest.raises((ValueError, RuntimeError), match="CUDA|cuda"):
+        fn()
+    assert _codec_launches() == before
+
+
+def test_codec_source_is_for_hopper():
+    assert "arch=compute_90a,code=sm_90a" in nvcc.NVCC_FLAGS
+    assert "--use_fast_math" not in nvcc.NVCC_FLAGS
+    src = open(Q.SOURCE).read()
+    assert src.count("__global__") == 3
+    assert "src/repro/kernels/quantize.py" in src
+    for fn in ("__fdiv_rn", "rintf", "atomicMax"):
+        assert fn in src, fn
+    assert Q.library_path().startswith(nvcc.BUILD_DIR)
+    assert os.path.basename(Q.library_path()).startswith("libquantize-")
+
+
+def test_train_without_device_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would train")
+    from repro_torch.launch import train
+    before = (FA.LAUNCHES, _codec_launches())
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1", "--batch", "2", "--seq", "8"])
+    assert (FA.LAUNCHES, _codec_launches()) == before
+
+
+@pytest.mark.parametrize("argv", [
+    ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq",
+     "8", "--compression", "int8_ef"],
+    ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
+     "8", "--optimizer", "adafactor", "--microbatches", "2", "--remat",
+     "full", "--dtype", "float32", "--seed", "3"],
+])
+def test_train_cpu_report(argv, capsys):
+    from repro_torch.launch import train
+    report = train.main(argv)
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == report
+    assert REFERENCE_TRAIN_KEYS | {"device", "step_ms", "tokens_per_s"} <= set(report)
+    steps = int(argv[argv.index("--steps") + 1])
+    assert report["steps"] == steps and len(report["losses"]) == steps
+    assert report["first_loss"] == report["losses"][0]
+    assert report["final_loss"] == pytest.approx(sum(report["losses"]) / steps)
+    assert report["device"] == "cpu" and report["mesh"] == [1, 1]
+    assert report["step_ms"] > 0 and report["tokens_per_s"] > 0
+
+
+def test_train_dry_run(capsys):
+    from repro_torch.launch import train
+    plan = train.main(["--device", "cpu", "--dry-run"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == plan
+    assert plan["dry_run"] and plan["arch"] == "smollm-360m"
+    assert plan["path"] == "single"
