@@ -18,23 +18,34 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
    stacked leaf) and the int8_ef residual;
-5. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
+5. the SSD scan kernel against its plain version, fp32 and bf16, y and the
+   final state: the reference's kernel test cases, the mamba2 training
+   shape and the prefill shape (224 of 256 rows padding); and the autograd
+   Function's gradients against autograd through the plain version;
+6. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
    (batch 4, prompt 32, 32 generated tokens), with every kernel's launches
    counted over that run;
-6. decode-loop logits against a prefill forward of the same prompt, at
+7. decode-loop logits against a prefill forward of the same prompt, at
    full width: asserted in fp32, reported for the served bf16 model,
    whose decode steps are then profiled (device busy time, idle share,
    top kernels);
-7. full-width smollm-360m trained through ``repro_torch.launch.train.main``
+8. full-width smollm-360m trained through ``repro_torch.launch.train.main``
    (batch 8, seq 512, 8 steps of adamw with int8_ef compression), with
    every kernel's launches counted over that run; the losses must be
    finite and fall;
-8. ``compress_tree`` on the full-width grads of one backward against its
-   plain version, bit for bit; then a train step profiled as in phase 6;
-9. timings: each kernel, its plain version and the one-call library
-   yardstick where there is one (the port never calls it), each the median
-   of 50 runs timed with CUDA events, L2 flushed before each run, beside
-   the bound from bytes and operations.
+9. ``compress_tree`` on the full-width grads of one backward against its
+   plain version, bit for bit; then a train step profiled as in phase 7;
+10. full-width mamba2-370m served as in phase 6: decode is the recurrence,
+    so no SSD launch;
+11. mamba2-370m's decode loop against ``MD.prefill`` (48 SSD launches) at
+    full width: logits, conv tails and final SSD states asserted in fp32,
+    reported in bf16; a bf16 decode step profiled;
+12. full-width mamba2-370m trained as in phase 8 (8 x 48 SSD launches),
+    then a train step profiled;
+13. timings: each kernel, its plain version and the one-call library
+    yardstick where there is one (the port never calls it), each the median
+    of 50 runs timed with CUDA events, L2 flushed before each run, beside
+    the bound from bytes and operations.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -58,10 +69,19 @@ ARCH = "qwen2.5-3b"
 BATCH, PROMPT, GEN = 4, 32, 32
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+SSM_ARCH = "mamba2-370m"      # served and trained at the shapes above
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12,      # dense tensor-core bf16
                   "float32": 67e12}        # fp32 outside the tensor cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# SSD kernel vs plain, atol and rtol: the reference's kernel tolerances
+# (tests/test_kernels.py). In bf16 the plain version rounds C·Bᵀ and the
+# carried state to bf16 where the kernel keeps fp32, so y differs by more
+# than its own rounding (one bf16 ulp is 3.1e-2 at |y| = 4..8).
+SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# mamba2 decode loop vs prefill in fp32, atol and rtol: the conv tails and
+# final SSD states of 48 layers, summed in GEMV and GEMM orders
+SSM_CACHE_TOL = 1e-3
 
 # The reference's kernel test cases (tests/test_kernels.py FLASH_CASES):
 # B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap
@@ -76,6 +96,14 @@ FLASH_CASES = [
 ]
 # The reference's codec test shapes (tests/test_kernels.py QUANT_SHAPES)
 QUANT_SHAPES = [(5, 5, 3, 16), (400, 120), (84,), (257, 129), (8192,)]
+# The reference's SSD test cases (tests/test_kernels.py SSD_CASES):
+# b, l, h, p, g, n, chunk
+SSD_CASES = [
+    (1, 128, 2, 16, 1, 8, 32),
+    (2, 64, 4, 8, 2, 16, 16),
+    (1, 256, 8, 16, 1, 32, 64),
+    (1, 32, 2, 8, 1, 8, 32),
+]
 
 
 def fail(msg: str) -> None:
@@ -99,6 +127,7 @@ PORTED_KERNELS = (  # (name, substring of its device kernel's name); first wins
     ("dequantize_int8", "dequantize_kernel"),
     ("quantize_absmax", "absmax_kernel"),
     ("quantize_int8", "quantize_kernel"),
+    ("ssd_scan", "ssd_scan_kernel"),
 )
 
 
@@ -175,6 +204,7 @@ def main() -> None:
     from repro_torch.dist import compression as C
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.launch import serve, train
     from repro_torch.models import model as MD
     from repro_torch.models.attention import AttnSpec
@@ -185,7 +215,8 @@ def main() -> None:
     counters = {"flash_attention": (FA, "LAUNCHES"),
                 "quantize_absmax": (Q, "ABSMAX_LAUNCHES"),
                 "quantize_int8": (Q, "QUANTIZE_LAUNCHES"),
-                "dequantize_int8": (Q, "DEQUANTIZE_LAUNCHES")}
+                "dequantize_int8": (Q, "DEQUANTIZE_LAUNCHES"),
+                "ssd_scan": (SSD, "LAUNCHES")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -206,8 +237,8 @@ def main() -> None:
     # ---- 2. build ---------------------------------------------------------
     phase("build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        libs = list(ex.map(lambda m: m.build(), (FA, Q)))
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        libs = list(ex.map(lambda m: m.build(), (FA, Q, SSD)))
     print(f"built in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print(f"  {os.path.relpath(lib, REPO)}")
@@ -385,7 +416,82 @@ def main() -> None:
         fail(f"codec kernels not bit-identical: {codec_err}")
     torch.cuda.empty_cache()
 
-    # ---- 5. full-width serve ---------------------------------------------
+    # ---- 5. SSD scan kernel against plain ---------------------------------
+    phase("ssd_scan kernel vs plain version")
+    mfull = get_config(SSM_ARCH)
+    ms = mfull.ssm
+    m_heads = ms.expand * mfull.d_model // ms.head_dim
+    ssd_train = (TRAIN_BATCH, TRAIN_SEQ, m_heads, ms.head_dim, ms.n_groups,
+                 ms.d_state, ms.chunk_size)
+    ssd_prefill = (BATCH, ms.chunk_size, m_heads, ms.head_dim, ms.n_groups,
+                   ms.d_state, ms.chunk_size)
+
+    def ssd_inputs(b, l, h, p, g, n, chunk, dtype, real=None):
+        """x, dt, A, B, C, D scaled as the reference's kernel tests. x, B and
+        C are slices of one [b, l, h*p + 2*g*n] tensor, as the model hands
+        them over (the conv output), so the kernel reads them through
+        strides. Rows from ``real`` on are zero, dt too, as
+        ``mamba2_forward`` pads a prompt up to a chunk multiple."""
+        def r(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        xbc = torch.cat([r(b, l, h * p) * 0.5, r(b, l, 2 * g * n) * 0.3], dim=-1)
+        dt = F.softplus(r(b, l, h)) * 0.2
+        if real is not None:
+            xbc[:, real:] = 0
+            dt[:, real:] = 0
+        xbc = xbc.to(dtype)
+        x = xbc[..., :h * p].unflatten(-1, (h, p))
+        B = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        C = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+        return x, dt, -torch.exp(r(h) * 0.3), B, C, torch.ones(h, device=dev)
+
+    ssd_cases = ([(f"ref{c}", c, None) for c in SSD_CASES]
+                 + [(f"train{list(ssd_train)}", ssd_train, None),
+                    (f"prefill{list(ssd_prefill)} {PROMPT} real", ssd_prefill, PROMPT)])
+    ssd_err = None
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        tol = SSD_TOL[dname]
+        for label, case, real in ssd_cases:
+            ins = ssd_inputs(*case, dtype, real=real)
+            y, st = SSD.ssd_scan(*ins, case[-1])
+            yp, sp = SSD.ssd_plain(*ins, chunk=case[-1], return_state=True)
+            torch.cuda.synchronize()
+            errs = [(a.float() - b.float()).abs().max().item() for a, b in ((y, yp), (st, sp))]
+            ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+                     for a, b in ((y, yp), (st, sp)))
+            print(f"  {dname:8s} {label:44s} y max_abs_err={errs[0]:.3e} state "
+                  f"max_abs_err={errs[1]:.3e} (max |y| {yp.float().abs().max().item():.3f}) "
+                  f"tol={tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"ssd_scan disagrees with its plain version: {dname} {label} {errs}")
+            if dtype == torch.bfloat16 and case == ssd_train:
+                ssd_err = max(errs)
+
+    # The training path's autograd Function: forward is the kernel, backward
+    # recomputes the plain version; the final state goes unused, as in
+    # training, so its gradient comes in as None.
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        tol = SSD_TOL[dname]
+        ins = [t.detach().requires_grad_(True) for t in ssd_inputs(*ssd_train, dtype)]
+        y, _ = SSD.SSDScan.apply(*ins, ms.chunk_size)
+        yp = SSD.ssd_plain(*ins, chunk=ms.chunk_size)
+        go = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+        got = torch.autograd.grad(y, ins, go)
+        want = torch.autograd.grad(yp, ins, go)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+            err = (a.float() - b.float()).abs().max().item()
+            ok = torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
+            print(f"  {dname:8s} train d{name} (autograd Function) max_abs_err={err:.3e} "
+                  f"tol={tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"SSDScan backward disagrees: {dname} d{name} {err}")
+        del ins, y, yp, go, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 6. full-width serve ---------------------------------------------
     phase(f"serve {ARCH} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -394,7 +500,8 @@ def main() -> None:
                          "--device", "cuda"])
     serve_counts = read_counts()
     expected = {"flash_attention": (PROMPT + GEN) * full.n_layers,
-                "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0}
+                "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0,
+                "ssd_scan": 0}
     rep = served.report
     print(f"  launches {serve_counts} (expected {expected}); "
           f"prefill_s {rep['prefill_s']} decode_s {rep['decode_s']} "
@@ -409,7 +516,7 @@ def main() -> None:
         fail(f"serve tokens out of range or shape {tuple(served.tokens.shape)}")
     del served
 
-    # ---- 6. decode against prefill at full width --------------------------
+    # ---- 7. decode against prefill at full width --------------------------
     # fp32 weights, activations and caches hold the decode path (kernel at
     # Sq=1 over the ring cache) to the prefill path (kernel at Sq=32); the
     # logits are bf16 either way (logits_fn), so the bf16 tolerance applies.
@@ -457,7 +564,7 @@ def main() -> None:
         del params, caches
     torch.cuda.empty_cache()
 
-    # ---- 7. full-width training -------------------------------------------
+    # ---- 8. full-width training -------------------------------------------
     phase(f"train {TRAIN_ARCH} at full width (batch {TRAIN_BATCH}, seq "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
     train_argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
@@ -479,7 +586,8 @@ def main() -> None:
     n_tensors, n_ref_leaves = sum(len(idx) for _, idx in groups), len(groups)
     expected = {"flash_attention": TRAIN_STEPS * tcfg_full.n_layers,
                 **{k: TRAIN_STEPS * n_tensors for k in
-                   ("quantize_absmax", "quantize_int8", "dequantize_int8")}}
+                   ("quantize_absmax", "quantize_int8", "dequantize_int8")},
+                "ssd_scan": 0}
     losses = trained["losses"]
     print(f"  launches {train_counts} (expected {expected}: {n_tensors} "
           f"parameter tensors in {n_ref_leaves} reference leaves); "
@@ -495,7 +603,7 @@ def main() -> None:
     del trained
     torch.cuda.empty_cache()
 
-    # ---- 8. compress_tree on full-width grads; a profiled train step ------
+    # ---- 9. compress_tree on full-width grads; a profiled train step ------
     phase("compress_tree on full-width grads vs plain; profiled train step")
     tcfg = TrainConfig(optimizer="adamw", grad_compression="int8_ef",
                        remat_policy="none", total_steps=TRAIN_STEPS,
@@ -550,7 +658,130 @@ def main() -> None:
     del holder, state, step_fn, batch
     torch.cuda.empty_cache()
 
-    # ---- 9. timings -------------------------------------------------------
+    # ---- 10. full-width mamba2 serve ----------------------------------------
+    phase(f"serve {SSM_ARCH} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    served = serve.main(["--arch", SSM_ARCH, "--batch", str(BATCH),
+                         "--prompt-len", str(PROMPT), "--gen", str(GEN),
+                         "--device", "cuda"])
+    mserve_counts = read_counts()
+    expected = {k: 0 for k in counters}     # decode runs the O(1) recurrence
+    rep = served.report
+    print(f"  launches {mserve_counts} (expected {expected}); "
+          f"prefill_s {rep['prefill_s']} decode_s {rep['decode_s']} "
+          f"decode_tok_per_s {rep['decode_tok_per_s']} peak_mem_GB "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}", flush=True)
+    if mserve_counts != expected:
+        fail(f"{SSM_ARCH} serve launched the kernels {mserve_counts}, expected {expected}")
+    if not torch.isfinite(served.logits.float()).all():
+        fail(f"{SSM_ARCH} serve produced non-finite logits")
+    if served.tokens.shape != (BATCH, GEN) or not (
+            (served.tokens >= 0) & (served.tokens < mfull.vocab_size)).all():
+        fail(f"{SSM_ARCH} serve tokens out of range or shape {tuple(served.tokens.shape)}")
+    del served
+
+    # ---- 11. mamba2 decode loop against prefill at full width --------------
+    # MD.prefill runs the SSD kernel once per layer over the prompt padded to
+    # one chunk; its logits and its caches (conv tails, final SSD states) are
+    # held to the decode loop's, which runs the recurrence. Asserted in fp32
+    # (logits bf16, so the bf16 tolerance; caches SSM_CACHE_TOL), reported
+    # for the served bf16 model, whose decode steps are then profiled.
+    phase(f"{SSM_ARCH} decode loop vs MD.prefill at full width")
+    mprompt = make_batch_for(mfull, BATCH, PROMPT)["tokens"].to(dev)
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(mfull, dtype=dname, param_dtype=dname)
+        with torch.inference_mode():
+            params = MD.init_model(cfg, seed=0, device=dev)
+            caches = MD.init_decode_caches(cfg, BATCH, PROMPT + GEN,
+                                           dtype=MD.dtype_of(cfg), device=dev)
+            for pos in range(PROMPT):
+                dec, caches = MD.decode_step(params, cfg, caches,
+                                             mprompt[:, pos:pos + 1], pos)
+            torch.cuda.synchronize()
+            reset_counts()
+            pre, pcaches = MD.prefill(params, cfg, {"tokens": mprompt})
+            torch.cuda.synchronize()
+            prefill_counts = read_counts()
+        want = {**{k: 0 for k in counters}, "ssd_scan": cfg.n_layers}
+        if prefill_counts != want:
+            fail(f"{SSM_ARCH} prefill launched {prefill_counts}, expected {want}")
+        err = (dec.float() - pre.float()).abs().max().item()
+        ok = torch.allclose(dec.float(), pre.float(), atol=TOL["bfloat16"],
+                            rtol=TOL["bfloat16"])
+        cache_errs = {}
+        for name, got, ref in zip(("conv tails", "final SSD states"), pcaches[0], caches[0]):
+            cache_errs[name] = (got.float() - ref.float()).abs().max().item()
+            ok &= got.shape == ref.shape and torch.allclose(
+                got.float(), ref.float(), atol=SSM_CACHE_TOL, rtol=SSM_CACHE_TOL)
+        agree = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
+        verdict = ("ok" if ok else "FAIL") if dname == "float32" else "reported"
+        print(f"  {dname:8s} prefill launches {prefill_counts['ssd_scan']}; last-position "
+              f"logits max_abs_err={err:.3e} (max |logit| {pre.float().abs().max().item():.3f}) "
+              f"tol={TOL['bfloat16']:g}, argmax agreement {agree:.2f}; caches max_abs_err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in cache_errs.items())
+              + f" tol={SSM_CACHE_TOL:g} {verdict}", flush=True)
+        if dname == "float32" and not ok:
+            fail(f"{SSM_ARCH} prefill disagrees with the decode loop: logits {err}, "
+                 f"caches {cache_errs}")
+        if dname == "bfloat16":
+            tok, pos = dec.argmax(-1)[:, None], [PROMPT]
+
+            def decode_one():
+                nonlocal caches
+                _, caches = MD.decode_step(params, cfg, caches, tok, pos[0])
+                pos[0] += 1
+
+            with torch.inference_mode():
+                profile_steps(torch, decode_one, 4,
+                              f"{SSM_ARCH} decode step at full width, bf16, "
+                              f"batch {BATCH}", card)
+        del params, caches, pcaches
+    torch.cuda.empty_cache()
+
+    # ---- 12. full-width mamba2 training -------------------------------------
+    phase(f"train {SSM_ARCH} at full width (batch {TRAIN_BATCH}, seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    mtrained = train.main(["--arch", SSM_ARCH] + train_argv[2:])
+    mtrain_counts = read_counts()
+    # One kernel forward per layer per step (the backward recomputes the
+    # plain version); the codec as in phase 8, over the mamba2 tree.
+    mgroups = reference_leaves(MD.init_model(
+        dataclasses.replace(reduced(mfull), n_layers=mfull.n_layers),
+        seed=0, device="cpu"))
+    m_tensors = sum(len(idx) for _, idx in mgroups)
+    expected = {"flash_attention": 0,
+                **{k: TRAIN_STEPS * m_tensors for k in
+                   ("quantize_absmax", "quantize_int8", "dequantize_int8")},
+                "ssd_scan": TRAIN_STEPS * mfull.n_layers}
+    losses = mtrained["losses"]
+    print(f"  launches {mtrain_counts} (expected {expected}: {m_tensors} "
+          f"parameter tensors in {len(mgroups)} reference leaves); "
+          f"step_ms {mtrained['step_ms']} tokens_per_s {mtrained['tokens_per_s']} "
+          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; losses "
+          f"{[round(x, 3) for x in losses]}; card {card}", flush=True)
+    if mtrain_counts != expected:
+        fail(f"{SSM_ARCH} train launched the kernels {mtrain_counts}, expected {expected}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"{SSM_ARCH} train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{SSM_ARCH} train loss did not fall: {losses}")
+    del mtrained
+    torch.cuda.empty_cache()
+
+    holder = [TS.init_train_state(mfull, tcfg, seed=0, device=dev)]
+    batch = {k: v.to(dev) for k, v in make_batch_for(
+        mfull, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    step_fn = TS.make_train_step(mfull, tcfg)
+    profile_steps(torch, train_one, 2,     # phase 9's train_one, on these
+                  f"{SSM_ARCH} train step at full width, bf16, batch {TRAIN_BATCH} "
+                  f"x seq {TRAIN_SEQ}, adamw + int8_ef", card)
+    del holder, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # ---- 13. timings -------------------------------------------------------
     phase("timings (median of 50 runs, CUDA events, L2 flushed before each)")
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
 
@@ -644,14 +875,57 @@ def main() -> None:
               f"{r['bound_ms']:.6f} ms by {bound_by} ({n_bytes} B, {n_ops} op); "
               f"card {card}", flush=True)
 
+    # The SSD kernel at the mamba2 training shape and the prefill check's
+    # padded shape, bf16. Bytes: each input read once, y and the state written
+    # once. Operations: per (b, h, chunk), C·Bᵀ and its product with x over the
+    # causal (q, k) pairs only, 2·pairs·(N + P), and the inter-chunk and state
+    # products, 2·2·Q·P·N; the padded rows are counted, as the call gets them.
+    # No single PyTorch call computes the SSD scan: library none.
+    for label, case, real in (("ssd_train", ssd_train, None),
+                              ("ssd_prefill", ssd_prefill, PROMPT)):
+        b, l, h, p, g, n, Q = case
+        ins = ssd_inputs(*case, torch.bfloat16, real=real)
+        outs = SSD.ssd_scan(*ins, Q)
+        n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+        pairs = Q * (Q + 1) // 2
+        n_ops = b * h * (l // Q) * (2 * pairs * (n + p) + 4 * Q * p * n)
+        bound_ms, bound_by = bound(n_bytes, n_ops, "bfloat16")
+        rows[label] = {
+            "ms": time_ms(lambda: SSD.ssd_scan(*ins, Q)),
+            "plain_ms": time_ms(lambda: SSD.ssd_plain(*ins, chunk=Q, return_state=True)),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        r = rows[label]
+        print(f"  {label:16s} x [{b},{l},{h},{p}] B/C [{b},{l},{g},{n}] chunk {Q} bf16: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none "
+              f"(no PyTorch call computes the SSD scan), bound {bound_ms:.6f} ms by "
+              f"{bound_by} ({n_bytes} B, {n_ops} flop); card {card}", flush=True)
+        del ins, outs
+    # The training path's backward has no kernel: SSDScan recomputes the plain
+    # version under autograd. Its time per layer, for the step's breakdown.
+    ins = [t.detach().requires_grad_(True)
+           for t in ssd_inputs(*ssd_train, torch.bfloat16)]
+    y, _ = SSD.SSDScan.apply(*ins, ms.chunk_size)
+    go = torch.randn(y.shape, generator=gen, device=dev).to(torch.bfloat16)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(y, ins, go, retain_graph=True))
+    print(f"  ssd_backward     SSDScan backward at the train shape (plain recompute "
+          f"under autograd, no kernel): {bwd_ms:.4f} ms, x {mfull.n_layers} layers = "
+          f"{bwd_ms * mfull.n_layers:.1f} ms/step; card {card}", flush=True)
+    del ins, y, go
+
+    paths = {"serve": serve_counts, "train": train_counts,
+             "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
+             "mamba2_prefill_check": prefill_counts}
+
+    def by_path(name):
+        return {k: c[name] for k, c in paths.items()}
+
     path = rows["decode_cap64"]
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:122",
         "launches": serve_counts["flash_attention"],
-        "launches_by_path": {"serve": serve_counts["flash_attention"],
-                             "train": train_counts["flash_attention"]},
+        "launches_by_path": by_path("flash_attention"),
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
@@ -665,13 +939,25 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": f"src/repro/kernels/quantize.py:{line}",
             "launches": train_counts[name],
-            "launches_by_path": {"serve": serve_counts[name],
-                                 "train": train_counts[name]},
+            "launches_by_path": by_path(name),
             "max_abs_err": codec_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    r = rows["ssd_train"]
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:92",
+        "launches": mtrain_counts["ssd_scan"],
+        "launches_by_path": by_path("ssd_scan"),
+        "max_abs_err": ssd_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None,
+        "prefill_shape": rows["ssd_prefill"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

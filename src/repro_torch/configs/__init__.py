@@ -6,6 +6,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig, TrainConfig, reduced
 
 _PORTED = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "qwen2.5-3b": "repro_torch.configs.qwen2p5_3b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
 }

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import quantize as Q
+from repro_torch.kernels import ssd_scan as SSD
 
 
 def attention(q, k, v, q_pos, kv_pos, spec):
@@ -18,6 +19,15 @@ def attention(q, k, v, q_pos, kv_pos, spec):
     if q.device.type == "cpu":
         return FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
     return FA.FlashAttention.apply(q, k, v, q_pos, kv_pos, spec)
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256):
+    """Mamba2 SSD chunked scan (``repro.kernels.ops.ssd_chunked``):
+    (y [b,l,h,p], final state [b,h,p,n]). On the card the forward is the
+    kernel and the backward recomputes the plain version (``SSD.SSDScan``)."""
+    if x.device.type == "cpu":
+        return SSD.ssd_plain(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    return SSD.SSDScan.apply(x, dt, A, B, C, D, chunk)
 
 
 def quantize_int8_shared(xs: Sequence[torch.Tensor]

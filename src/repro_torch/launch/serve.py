@@ -1,5 +1,6 @@
-"""Single-device serving entry point: prefill-by-decode + greedy decode with ring
-KV caches, on a CUDA device unless ``--device cpu`` is given.
+"""Single-device serving entry point: prefill-by-decode + greedy decode with
+decode caches (ring KV caches, or Mamba2's conv and SSD states), on a CUDA
+device unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --prompt-len 32 --gen 32

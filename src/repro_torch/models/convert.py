@@ -2,8 +2,9 @@
 
 ``params_from_jax`` takes the tree of ``repro.models.layers.pvalues(params)``
 with numpy leaves (per-layer leaves stacked ``[n_layers, ...]``), unstacks
-the layers and turns every ``[d_in, d_out]`` kernel into a ``[d_out, d_in]``
-``F.linear`` weight, so both packages compute the same function.
+the layers and turns every ``[d_in, d_out]`` dense kernel into a
+``[d_out, d_in]`` ``F.linear`` weight, so both packages compute the same
+function; bare arrays keep their layout.
 """
 from __future__ import annotations
 
@@ -33,11 +34,14 @@ def _dense(tree, device) -> Dict[str, torch.Tensor]:
 
 
 def _convert(tree, device):
-    """Recursively map a (single-layer) reference subtree."""
+    """Recursively map a (single-layer) reference subtree: a ``{"kernel"}``
+    dense layer is transposed, any other array (norm scales, Mamba2's
+    depthwise ``conv_w [d_conv, conv_dim]``, ``A_log``, ...) keeps its
+    layout."""
+    if not isinstance(tree, dict):
+        return _tensor(tree, device)
     if "kernel" in tree:
         return _dense(tree, device)
-    if "scale" in tree:
-        return {"scale": _tensor(tree["scale"], device)}
     return {k: _convert(v, device) for k, v in tree.items()}
 
 

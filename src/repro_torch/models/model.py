@@ -1,12 +1,13 @@
-"""Model construction for the ``attn_mlp`` segment kind: init, hidden forward,
-logits, the training loss, prefill and decode (``repro.models.model``, the
-serving and single-device training subset).
+"""Model construction for the ``attn_mlp`` and ``ssm`` segment kinds: init,
+hidden forward, logits, the training loss, prefill and decode
+(``repro.models.model``, the serving and single-device training subset).
 
 Parameters are nested dicts of tensors. A segment is a list of per-layer
 dicts, and where the reference runs ``lax.scan`` over stacked layers this
-runs a Python loop. Decode caches keep the reference's stacked layout
-(``[n_layers, B, cap, Hkv, hd]`` per segment); each layer writes into its
-slice in place.
+runs a Python loop. Decode caches keep the reference's stacked layout, per
+segment ``(k [n_layers, B, cap, Hkv, hd], v, pos [n_layers, cap])`` for
+attention and ``(conv [n_layers, B, K-1, conv_dim], ssd [n_layers, B, H, P,
+N] fp32)`` for Mamba2; each layer writes into its slice in place.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch.utils.checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.layers import (embed, init_dense, init_embedding,
                                        init_mlp, init_rmsnorm, mlp, rmsnorm,
@@ -28,7 +30,8 @@ from repro_torch.models.layers import (embed, init_dense, init_embedding,
 MASK_ID = -1                 # label value that is excluded from the loss
 EMPTY_POS = 2 ** 30          # ring-cache "empty slot" position
 
-Caches = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+Caches = List[Tuple[torch.Tensor, ...]]
+PORTED_KINDS = ("attn_mlp", "ssm")
 
 
 @dataclass(frozen=True)
@@ -58,9 +61,9 @@ def _segment_kind(cfg: ModelConfig) -> str:
 
 def build_segments(cfg: ModelConfig) -> List[SegmentSpec]:
     kind = _segment_kind(cfg)
-    if kind != "attn_mlp":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"{cfg.name}: segment kind {kind!r} not ported yet")
-    return [SegmentSpec("attn_mlp", cfg.n_layers)]
+    return [SegmentSpec(kind, cfg.n_layers)]
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -71,8 +74,11 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # Init
 # ---------------------------------------------------------------------------
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     d, dt = cfg.d_model, dtype_of(cfg)
+    if kind == "ssm":
+        return {"ln": init_rmsnorm(d, gen.device),
+                "mamba": S.init_mamba2(gen, cfg, dt)}
     return {"ln1": init_rmsnorm(d, gen.device),
             "attn": A.init_gqa(gen, cfg, dt),
             "ln2": init_rmsnorm(d, gen.device),
@@ -90,7 +96,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype_of(cfg)),
         "final_norm": init_rmsnorm(cfg.d_model, dev),
-        "segments": [[init_block(gen, cfg) for _ in range(s.n)] for s in segs],
+        "segments": [[init_block(gen, cfg, s.kind) for _ in range(s.n)]
+                     for s in segs],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
@@ -108,10 +115,21 @@ def _attn_spec(cfg: ModelConfig, causal=True, window=0) -> AttnSpec:
                     scale=cfg.attn_scale_override)
 
 
-def apply_block(params, x, cfg: ModelConfig, *, positions, cache=None,
-                cache_pos=None, window=0, causal=True):
-    """One ``attn_mlp`` block. Returns (x, new_cache)."""
+def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
+                cache=None, cache_pos=None, window=0, causal=True):
+    """One block of ``kind``. Returns (x, new_cache).
+
+    An ``ssm`` block with a cache writes its new conv and SSD states into the
+    cache tensors in place, as the attention block writes its ring cache."""
     eps = cfg.norm_eps
+    if kind == "ssm":
+        h, new_cache = S.mamba2_forward(params["mamba"],
+                                        rmsnorm(params["ln"], x, eps), cfg, cache)
+        if cache is not None:
+            for old, new in zip(cache, new_cache):
+                old.copy_(new)
+            new_cache = cache
+        return x + h, new_cache
     spec = _attn_spec(cfg, causal=causal, window=window)
     h, new_cache = A.gqa_forward(params["attn"], rmsnorm(params["ln1"], x, eps),
                                  cfg, spec, positions, cache, cache_pos)
@@ -133,7 +151,7 @@ def _remat_block(blk, h, cfg: ModelConfig, seg: SegmentSpec, positions,
     keeps its activations for the backward, "full" keeps only its input and
     recomputes it (``torch.utils.checkpoint``)."""
     def run(x):
-        return apply_block(blk, x, cfg, positions=positions,
+        return apply_block(blk, x, cfg, seg.kind, positions=positions,
                            window=seg.window, causal=seg.causal)[0]
 
     if remat == "none":
@@ -149,8 +167,9 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
     """Run all segments. h: [B,S,D]. Returns (h, caches).
 
     With ``caches`` the layers update them in place and the same list comes
-    back; without, ``keep_cache`` stacks each segment's per-layer (k, v, pos)
-    as the reference's scan does, and otherwise the caches are None.
+    back; without, ``keep_cache`` stacks each segment's per-layer caches
+    ((k, v, pos) or (conv tail, final SSD state)) as the reference's scan
+    does, and otherwise the caches are None.
     ``remat`` applies to the training forward (no caches)."""
     train = caches is None and not keep_cache
     new_caches = []
@@ -161,9 +180,9 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
                 h = _remat_block(blk, h, cfg, seg, positions, remat)
                 continue
             c = None if caches is None else tuple(t[j] for t in caches[i])
-            h, nc = apply_block(blk, h, cfg, positions=positions, cache=c,
-                                cache_pos=cache_pos, window=seg.window,
-                                causal=seg.causal)
+            h, nc = apply_block(blk, h, cfg, seg.kind, positions=positions,
+                                cache=c, cache_pos=cache_pos,
+                                window=seg.window, causal=seg.causal)
             layer_caches.append(nc)
         if caches is not None:
             new_caches.append(caches[i])
@@ -232,7 +251,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     logits = logits_fn(params, cfg, h)
     ce_sum, n_tok = cross_entropy(logits, labels, impl=ce_impl)
     loss = ce_sum / torch.clamp(n_tok, min=1)
-    aux = torch.zeros((), device=loss.device)     # attn_mlp has no aux loss
+    aux = torch.zeros((), device=loss.device)     # attn_mlp and ssm have none
     metrics = {"ce": loss, "aux": aux, "tokens": n_tok}
     loss = loss + aux
     metrics["loss"] = loss
@@ -276,12 +295,24 @@ def _attn_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
             torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
 
 
+def _ssm_cache(cfg: ModelConfig, B: int, n: int, dtype,
+               device) -> Tuple[torch.Tensor, ...]:
+    """(conv state in the cache dtype, SSD state in fp32), as the reference's."""
+    s, _, nh, conv_dim = S._dims(cfg)
+    return (torch.zeros((n, B, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
+            torch.zeros((n, B, nh, s.head_dim, s.d_state), dtype=torch.float32,
+                        device=device))
+
+
 def init_decode_caches(cfg: ModelConfig, B: int, seq_cap: int,
                        dtype=torch.bfloat16, device="cuda") -> Caches:
-    """Zeroed ring caches matching hidden_forward's cache list."""
+    """Zeroed caches matching hidden_forward's cache list."""
     dev = resolve_device(device)
     caches = []
     for seg in build_segments(cfg):
+        if seg.kind == "ssm":
+            caches.append(_ssm_cache(cfg, B, seg.n, dtype, dev))
+            continue
         cap = min(seq_cap, seg.window) if seg.window else seq_cap
         caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, dev))
     return caches

@@ -1,4 +1,5 @@
-"""Serving steps: batched prefill + greedy decode with ring KV caches."""
+"""Serving steps: batched prefill + greedy decode with decode caches (ring KV
+caches for attention, conv and SSD states for Mamba2)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -25,7 +26,8 @@ def make_decode_step(cfg: ModelConfig):
 def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
                     n_steps: int, seq_cap: Optional[int] = None) -> torch.Tensor:
     """Prefill-by-decode over ``prompt`` [B,S], then ``n_steps`` greedy tokens
-    [B,n_steps], on ``prompt``'s device. Caches are bf16, as the reference's."""
+    [B,n_steps], on ``prompt``'s device. Caches are bf16 (Mamba2's SSD state
+    fp32), as the reference's."""
     B, S = prompt.shape
     cap = seq_cap or (S + n_steps)
     caches = MD.init_decode_caches(cfg, B, cap, device=prompt.device)

@@ -31,7 +31,7 @@ def test_token_stream_bit_equal(vocab, batch, seq, seed, step):
     np.testing.assert_array_equal(t.numpy(), np.asarray(ref.batch(step)))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m", "mamba2-370m"])
 @pytest.mark.parametrize("step,seed", [(0, 0), (5, 3)])
 def test_make_batch_for_tokens_bit_equal(arch, step, seed):
     for cut in (False, True):
@@ -44,7 +44,7 @@ def test_make_batch_for_tokens_bit_equal(arch, step, seed):
         np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m", "mamba2-370m"])
 def test_configs_equal_reference(arch):
     full_ref, full = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(full_ref)
@@ -62,7 +62,7 @@ def test_qwen_full_width_size():
     assert 3.0e9 < cfg.param_count() < 3.2e9
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "mamba2-370m", "deepseek-v3-671b",
+@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-1.2b", "deepseek-v3-671b",
                                   "whisper-tiny"])
 def test_unported_arch_raises(arch):
     jax_get_config(arch)                    # known to the reference

@@ -10,6 +10,7 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import nvcc
 from repro_torch.kernels import quantize as Q
+from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models.attention import AttnSpec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -89,6 +90,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "4", "--gen", "3"],
     ["--arch", "smollm-360m", "--reduced", "--device", "cpu", "--batch", "1",
      "--prompt-len", "3", "--gen", "2", "--seed", "5"],
+    ["--arch", "mamba2-370m", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "5", "--gen", "3"],
 ])
 def test_serve_cpu_report(argv, capsys):
     from repro_torch.launch import serve
@@ -160,12 +163,91 @@ def test_train_without_device_flag_needs_cuda():
     assert (FA.LAUNCHES, _codec_launches()) == before
 
 
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_mamba2_without_device_flag_needs_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would run")
+    from repro_torch.launch import serve, train
+    before = (FA.LAUNCHES, _codec_launches(), SSD.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "train":
+            train.main(["--arch", "mamba2-370m", "--reduced", "--steps", "1",
+                        "--batch", "2", "--seq", "8"])
+        else:
+            serve.main(["--arch", "mamba2-370m", "--reduced", "--batch", "1",
+                        "--prompt-len", "2", "--gen", "1"])
+    assert (FA.LAUNCHES, _codec_launches(), SSD.LAUNCHES) == before
+
+
+def _ssd_cpu_inputs():
+    x = torch.zeros(1, 32, 2, 8)
+    dt = torch.zeros(1, 32, 2)
+    A = torch.full((2,), -1.0)
+    B = torch.zeros(1, 32, 1, 8)
+    return x, dt, A, B, B.clone(), torch.ones(2)
+
+
+@pytest.mark.parametrize("call", ["wrapper", "autograd"])
+def test_ssd_kernel_refuses_cpu_tensors(call):
+    """Only ops.ssd_chunked sends CPU tensors to the plain version; the
+    kernel's wrapper and its autograd Function raise before building or
+    launching anything."""
+    ins = _ssd_cpu_inputs()
+    before = SSD.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        if call == "wrapper":
+            SSD.ssd_scan(*ins, 32)
+        else:
+            SSD.SSDScan.apply(*ins, 32)
+    assert SSD.LAUNCHES == before
+
+
+def test_ssd_wrapper_checks_shapes_before_device_work():
+    """The wrapper's shape, dtype and shared-memory checks come before its
+    device check; run on meta tensors, which it then refuses as not CUDA."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    x, dt, A, B, C, D = (meta(1, 32, 2, 8), meta(1, 32, 2), meta(2),
+                         meta(1, 32, 1, 8), meta(1, 32, 1, 8), meta(2))
+    for args, chunk, what in (
+            ((x, dt, A, B, C, D), 24, "multiple of chunk"),
+            ((x.half(), dt, A, B.half(), C.half(), D), 32, "fp32 or bf16"),
+            ((x, dt, A, B.bfloat16(), C, D), 32, "fp32 or bf16"),
+            ((x, dt.bfloat16(), A, B, C, D), 32, "dt must be fp32"),
+            ((x, dt, A, meta(1, 32, 1, 8)[..., :4], C, D), 32, "do not agree")):
+        with pytest.raises(ValueError, match=what):
+            SSD.ssd_scan(*args, chunk)
+    with pytest.raises(ValueError, match="CUDA"):
+        SSD.ssd_scan(x, dt, A, B, C, D, 32)
+    assert SSD.smem_bytes(64, 128, 256) <= SSD.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        SSD.ssd_scan(meta(1, 2048, 1, 128), meta(1, 2048, 1), meta(1),
+                     meta(1, 2048, 1, 256), meta(1, 2048, 1, 256), meta(1), 2048)
+
+
+def test_ssd_source_is_for_hopper():
+    assert "arch=compute_90a,code=sm_90a" in nvcc.NVCC_FLAGS
+    src = open(SSD.SOURCE).read()
+    assert src.count("__global__") == 1
+    assert "src/repro/kernels/ssd_scan.py" in src
+    for needle in ("cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "cudaGetLastError", "extern \"C\" int ssd_scan_forward"):
+        assert needle in src, needle
+    assert f"kTile = {SSD.TILE};" in src
+    assert f"kMaxP = {SSD.MAX_HEAD_DIM}" in src and str(SSD.MAX_SMEM) in src
+    assert SSD.library_path().startswith(nvcc.BUILD_DIR)
+    assert os.path.basename(SSD.library_path()).startswith("libssd_scan-")
+
+
 @pytest.mark.parametrize("argv", [
     ["--reduced", "--device", "cpu", "--steps", "3", "--batch", "2", "--seq",
      "8", "--compression", "int8_ef"],
     ["--reduced", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
      "8", "--optimizer", "adafactor", "--microbatches", "2", "--remat",
      "full", "--dtype", "float32", "--seed", "3"],
+    ["--arch", "mamba2-370m", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "40", "--compression", "int8_ef"],
 ])
 def test_train_cpu_report(argv, capsys):
     from repro_torch.launch import train
