@@ -11,9 +11,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: compile every kernel source of ``src/repro_torch`` (one ``nvcc``
    per source, all started together) and print registers and spills;
 3. flash attention against its plain version on the card, bf16 and fp32,
-   over the reference's kernel test cases, the serving path's shapes and
-   the training path's shape, and the autograd Function's gradients
-   against autograd through the plain version;
+   over the reference's kernel test cases, the serving path's shapes, the
+   training path's shape and cases aimed at each design (the tile kernel's
+   ragged tiles, windows, ring positions and wholly masked first rows; the
+   split-KV kernel's half-empty ring, ragged and empty last splits and a
+   wholly masked row over 4096 slots), each call gated on the design it
+   must take; and the autograd Function's gradients against autograd
+   through the plain version;
 4. the int8 codec kernels against their plain versions, bit for bit: the
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
@@ -24,15 +28,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    Function's gradients against autograd through the plain version;
 6. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
    (batch 4, prompt 32, 32 generated tokens), with every kernel's launches
-   counted over that run;
+   counted over that run, flash attention's by design (split-KV only);
 7. decode-loop logits against a prefill forward of the same prompt, at
    full width: asserted in fp32, reported for the served bf16 model,
    whose decode steps are then profiled (device busy time, idle share,
    top kernels);
 8. full-width smollm-360m trained through ``repro_torch.launch.train.main``
    (batch 8, seq 512, 8 steps of adamw with int8_ef compression), with
-   every kernel's launches counted over that run; the losses must be
-   finite and fall;
+   every kernel's launches counted over that run, flash attention's by
+   design (the tile kernel only); the losses must be finite and fall;
 9. ``compress_tree`` on the full-width grads of one backward against its
    plain version, bit for bit; then a train step profiled as in phase 7;
 10. full-width mamba2-370m served as in phase 6: decode is the recurrence,
@@ -45,7 +49,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 13. timings: each kernel, its plain version and the one-call library
     yardstick where there is one (the port never calls it), each the median
     of 50 runs timed with CUDA events, L2 flushed before each run, beside
-    the bound from bytes and operations.
+    the bound from bytes and operations. Flash attention at decode (64 and
+    4096 slots), prefill and the training shape, causal (``AttnSpec()``'s
+    default) and not, each against SDPA in its own mask form (none, or
+    ``is_causal``) and given the mask as a boolean tensor; then the tile
+    kernel's fixed cost and cost per KV tile, full and masked.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -123,7 +131,7 @@ def nvidia_smi() -> str:
 
 
 PORTED_KERNELS = (  # (name, substring of its device kernel's name); first wins
-    ("flash_attention", "flash_fwd_kernel"),
+    ("flash_attention", "flash_fwd_"),     # its three designs and the combine
     ("dequantize_int8", "dequantize_kernel"),
     ("quantize_absmax", "absmax_kernel"),
     ("quantize_int8", "quantize_kernel"),
@@ -221,9 +229,19 @@ def main() -> None:
     def reset_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        FA.LAUNCHES_BY_VARIANT = dict.fromkeys(FA.VARIANTS, 0)
 
     def read_counts():
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    def read_variants():
+        return dict(FA.LAUNCHES_BY_VARIANT)
+
+    def gate_variants(what, got, **want):
+        want = {v: want.get(v, 0) for v in FA.VARIANTS}
+        print(f"  flash_attention launches by design {got} (expected {want})", flush=True)
+        if got != want:
+            fail(f"{what} launched the flash attention designs {got}, expected {want}")
 
     # ---- 1. environment ---------------------------------------------------
     phase("environment")
@@ -244,7 +262,8 @@ def main() -> None:
         print(f"  {os.path.relpath(lib, REPO)}")
         with open(lib + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line or "build_s" in line:
+                if any(w in line for w in ("entry function", "registers", "spill",
+                                           "build_s")):
                     print("    " + line.strip())
 
     # ---- 3. flash attention against plain -------------------------------
@@ -263,51 +282,106 @@ def main() -> None:
     def tail_pos(Sq, Skv):
         return arange(Skv - Sq, Skv), arange(0, Skv)
 
-    cases = []   # (label, shape, q_pos, kv_pos, spec)
+    # (label, shape, q_pos, kv_pos, spec, design in bf16); fp32 always takes
+    # the CUDA-core kernel
+    cases = []
     for c in FLASH_CASES:
         B, Sq, Skv, Hq, Hkv, hd, causal, window, cap = c
         cases.append((f"ref{c[:6]}", c[:6], *tail_pos(Sq, Skv),
-                      AttnSpec(causal=causal, window=window, logit_softcap=cap)))
+                      AttnSpec(causal=causal, window=window, logit_softcap=cap),
+                      "cuda_core"))
     cases.append(("ring_cache", (1, 1, 64, 2, 2, 16), arange(95, 96),
                   torch.cat([arange(64, 96), arange(32, 64)]),
-                  AttnSpec(causal=True, window=40)))
+                  AttnSpec(causal=True, window=40), "cuda_core"))
     full = get_config(ARCH)
     hq, hkv, hd = full.n_heads, full.n_kv_heads, full.get_head_dim()
     for cap in (PROMPT + GEN, 4096):
         cases.append((f"decode_cap{cap}", (BATCH, 1, cap, hq, hkv, hd),
-                      *tail_pos(1, cap), AttnSpec()))
+                      *tail_pos(1, cap), AttnSpec(), "split_kv"))
     part = arange(0, PROMPT + GEN)
     part[10:] = FA.PAD_POS              # ring cache with empty slots
     cases.append(("decode_partial", (BATCH, 1, PROMPT + GEN, hq, hkv, hd),
-                  arange(9, 10), part, AttnSpec()))
+                  arange(9, 10), part, AttnSpec(), "split_kv"))
     cases.append(("all_masked", (BATCH, 1, PROMPT + GEN, hq, hkv, hd),
-                  arange(0, 1), arange(1, PROMPT + GEN + 1), AttnSpec()))
+                  arange(0, 1), arange(1, PROMPT + GEN + 1), AttnSpec(), "split_kv"))
+    # split-KV: half the ring empty (16 of 32 splits hold only PAD slots);
+    # 1000 keys, 8 splits of 128, the last with 104 (and a ragged chunk);
+    # a row with no attendable key over 32 splits; 129 keys in 2 splits of
+    # 128, the last holding one key (three of its four warps see none, m =
+    # -inf, weight 0), with that key attendable and with every key masked
+    half = arange(0, 4096)
+    half[2048:] = FA.PAD_POS
+    cases.append(("decode_cap4096_half_pad", (BATCH, 1, 4096, hq, hkv, hd),
+                  arange(2047, 2048), half, AttnSpec(), "split_kv"))
+    cases.append(("decode_ragged_1000", (BATCH, 1, 1000, hq, hkv, hd),
+                  *tail_pos(1, 1000), AttnSpec(), "split_kv"))
+    cases.append(("all_masked_cap4096", (BATCH, 1, 4096, hq, hkv, hd),
+                  arange(0, 1), arange(1, 4097), AttnSpec(), "split_kv"))
+    cases.append(("decode_last_split_1key", (BATCH, 1, 129, hq, hkv, hd),
+                  *tail_pos(1, 129), AttnSpec(), "split_kv"))
+    cases.append(("all_masked_129", (BATCH, 1, 129, hq, hkv, hd),
+                  arange(0, 1), arange(1, 130), AttnSpec(), "split_kv"))
     cases.append((f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT, hq, hkv, hd),
-                  *tail_pos(PROMPT, PROMPT), AttnSpec()))
+                  *tail_pos(PROMPT, PROMPT), AttnSpec(), "tile"))
+    # tile kernel: ragged q and kv tiles with a window and a softcap (hd 64);
+    # non-causal, G = 1 (hd 128); a wrapped ring with PAD slots (unsorted
+    # positions: tiles are skipped by position, never by index)
+    cases.append(("tile_window_softcap", (2, 200, 328, 8, 2, 64),
+                  *tail_pos(200, 328), AttnSpec(causal=True, window=48,
+                                                logit_softcap=30.0), "tile"))
+    cases.append(("tile_noncausal_g1", (1, 96, 160, 4, 4, 128),
+                  *tail_pos(96, 160), AttnSpec(causal=False), "tile"))
+    cases.append(("tile_ring", (1, 80, 256, 8, 2, 128), arange(300, 380),
+                  torch.cat([arange(320, 380), arange(130, 320),
+                             torch.full((6,), FA.PAD_POS, dtype=torch.int32,
+                                        device=dev)]),
+                  AttnSpec(causal=True, window=100), "tile"))
     tcfg_full = get_config(TRAIN_ARCH)
     t_heads = (tcfg_full.n_heads, tcfg_full.n_kv_heads, tcfg_full.get_head_dim())
     t_shape = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *t_heads)
     cases.append((f"train{TRAIN_SEQ}", t_shape, *tail_pos(TRAIN_SEQ, TRAIN_SEQ),
-                  AttnSpec(causal=True)))
+                  AttnSpec(causal=True), "tile"))
+    cases.append((f"train{TRAIN_SEQ}_noncausal", t_shape,
+                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), AttnSpec(causal=False), "tile"))
+    # q_pos starts at -8: the first 8 rows have no attendable key (mean(v) over
+    # all 512 keys) while each q tile skips every KV tile past its diagonal
+    cases.append((f"train{TRAIN_SEQ}_causal_shift", t_shape,
+                  arange(-8, TRAIN_SEQ - 8), arange(0, TRAIN_SEQ),
+                  AttnSpec(causal=True), "tile"))
 
     path_err = None
+    designs_seen = collections.Counter()
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for label, shape, q_pos, kv_pos, spec in cases:
+        for label, shape, q_pos, kv_pos, spec, design in cases:
             q, k, v = inputs(*shape, dtype)
+            before = read_variants()
             out = FA.flash_attention(q, k, v, q_pos, kv_pos, spec)
             ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
             torch.cuda.synchronize()
+            design = design if dtype == torch.bfloat16 else "cuda_core"
+            launched = {d: n - before[d] for d, n in read_variants().items() if n != before[d]}
+            splits = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype).n_splits
+            want = {design: 1, **({"split_kv_combine": 1} if splits > 1 else {})}
+            designs_seen.update(launched)
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
                                 rtol=TOL[dname])
-            print(f"  {dname:8s} {label:28s} max_abs_err={err:.3e} "
-                  f"tol={TOL[dname]:g} {'ok' if ok else 'FAIL'}", flush=True)
+            print(f"  {dname:8s} {label:28s} {design:9s} splits {splits:2d} "
+                  f"max_abs_err={err:.3e} tol={TOL[dname]:g} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if launched != want:
+                fail(f"flash_attention {dname} {label} launched {launched}, "
+                     f"expected {want}")
             if not ok:
                 fail(f"flash_attention disagrees with its plain version: "
                      f"{dname} {label} max_abs_err={err}")
             if dtype == torch.bfloat16 and label == f"decode_cap{PROMPT + GEN}":
                 path_err = err
+            del q, k, v, out, ref
+    print(f"  launches by design over these cases: {dict(designs_seen)}", flush=True)
+    if set(designs_seen) != set(FA.VARIANTS):
+        fail(f"the cases did not run every design: {dict(designs_seen)}")
 
     # The training path's autograd Function: forward is the kernel, backward
     # recomputes the plain version; its grads against autograd through the
@@ -499,6 +573,7 @@ def main() -> None:
                          "--prompt-len", str(PROMPT), "--gen", str(GEN),
                          "--device", "cuda"])
     serve_counts = read_counts()
+    serve_variants = read_variants()
     expected = {"flash_attention": (PROMPT + GEN) * full.n_layers,
                 "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0,
                 "ssd_scan": 0}
@@ -509,6 +584,7 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}", flush=True)
     if serve_counts != expected:
         fail(f"serve launched the kernels {serve_counts}, expected {expected}")
+    gate_variants("serve", serve_variants, split_kv=(PROMPT + GEN) * full.n_layers)
     if not torch.isfinite(served.logits.float()).all():
         fail("serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
@@ -575,6 +651,7 @@ def main() -> None:
     reset_counts()
     trained = train.main(train_argv)
     train_counts = read_counts()
+    train_variants = read_variants()
     # One kernel forward per layer per step (the backward recomputes the
     # plain version); one launch of each codec kernel per parameter tensor
     # per step, the tensors grouped into the reference's leaves.
@@ -596,6 +673,7 @@ def main() -> None:
           flush=True)
     if train_counts != expected:
         fail(f"train launched the kernels {train_counts}, expected {expected}")
+    gate_variants("train", train_variants, tile=TRAIN_STEPS * tcfg_full.n_layers)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"train losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -666,6 +744,7 @@ def main() -> None:
                          "--prompt-len", str(PROMPT), "--gen", str(GEN),
                          "--device", "cuda"])
     mserve_counts = read_counts()
+    mserve_variants = read_variants()
     expected = {k: 0 for k in counters}     # decode runs the O(1) recurrence
     rep = served.report
     print(f"  launches {mserve_counts} (expected {expected}); "
@@ -674,6 +753,7 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}", flush=True)
     if mserve_counts != expected:
         fail(f"{SSM_ARCH} serve launched the kernels {mserve_counts}, expected {expected}")
+    gate_variants(f"{SSM_ARCH} serve", mserve_variants)
     if not torch.isfinite(served.logits.float()).all():
         fail(f"{SSM_ARCH} serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
@@ -746,6 +826,7 @@ def main() -> None:
     reset_counts()
     mtrained = train.main(["--arch", SSM_ARCH] + train_argv[2:])
     mtrain_counts = read_counts()
+    mtrain_variants = read_variants()
     # One kernel forward per layer per step (the backward recomputes the
     # plain version); the codec as in phase 8, over the mamba2 tree.
     mgroups = reference_leaves(MD.init_model(
@@ -764,6 +845,7 @@ def main() -> None:
           f"{[round(x, 3) for x in losses]}; card {card}", flush=True)
     if mtrain_counts != expected:
         fail(f"{SSM_ARCH} train launched the kernels {mtrain_counts}, expected {expected}")
+    gate_variants(f"{SSM_ARCH} train", mtrain_variants)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"{SSM_ARCH} train losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -807,41 +889,89 @@ def main() -> None:
         ops_ms = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
         return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
+    # Flash attention rows: (label, (B, Sq, Skv), heads, spec, SDPA's own
+    # form of the mask). Each row's q_pos/kv_pos leave SDPA a mask it can take
+    # without a tensor: none at decode (every key attendable) and non-causal,
+    # is_causal at prefill and training (Sq = Skv). library_ms is that call;
+    # library_mask_ms is SDPA given the mask as a boolean tensor, the
+    # yardstick of PR 13's rows. Both are checked against the plain version.
+    # AttnSpec() is causal by default, so "train512" is the causal work.
     rows = {}
-    for label, (B, Sq, Skv), (nh, nkv, dh) in (
-            ("decode_cap64", (BATCH, 1, PROMPT + GEN), (hq, hkv, hd)),
-            ("decode_cap4096", (BATCH, 1, 4096), (hq, hkv, hd)),
-            (f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT), (hq, hkv, hd)),
-            (f"train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), t_heads)):
+    t_dims = (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ)
+    for label, (B, Sq, Skv), (nh, nkv, dh), spec, sdpa_form in (
+            ("decode_cap64", (BATCH, 1, PROMPT + GEN), (hq, hkv, hd), AttnSpec(), "none"),
+            ("decode_cap4096", (BATCH, 1, 4096), (hq, hkv, hd), AttnSpec(), "none"),
+            (f"prefill{PROMPT}", (BATCH, PROMPT, PROMPT), (hq, hkv, hd), AttnSpec(),
+             "is_causal"),
+            (f"train{TRAIN_SEQ}", t_dims, t_heads, AttnSpec(), "is_causal"),
+            (f"train{TRAIN_SEQ}_noncausal", t_dims, t_heads, AttnSpec(causal=False),
+             "none")):
         q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, torch.bfloat16)
         q_pos, kv_pos = tail_pos(Sq, Skv)
-        spec = AttnSpec()
         mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        own_kw = {"is_causal": True} if sdpa_form == "is_causal" else {}
 
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask[None, None], enable_gqa=True)
+        def sdpa_own():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **own_kw)
+
+        def sdpa_mask():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                  attn_mask=mask[None, None])
 
         ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
-        lib_err = (sdpa().transpose(1, 2).float() - ref.float()).abs().max().item()
+        lib_err = {}
+        for name, fn in (("own", sdpa_own), ("mask", sdpa_mask)):
+            got = fn().transpose(1, 2).float()
+            lib_err[name] = (got - ref.float()).abs().max().item()
+            if not torch.allclose(got, ref.float(), atol=TOL["bfloat16"],
+                                  rtol=TOL["bfloat16"]):
+                fail(f"SDPA ({name}) is not the {label} row's function: {lib_err}")
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (q, k, v, ref, q_pos, kv_pos))
         n_ops = 4 * B * nh * dh * int(mask.sum().item())   # unmasked pairs only
         bound_ms, bound_by = bound(n_bytes, n_ops, "bfloat16")
+        design = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype)
         row = {
             "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
             "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
-            "library_ms": time_ms(sdpa),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(sdpa_own), "library_call": f"sdpa {sdpa_form}",
+            "library_mask_ms": time_ms(sdpa_mask),
+            "bound_ms": bound_ms, "bound_by": bound_by, "causal": spec.causal,
+            "design": design.variant, "n_splits": design.n_splits,
         }
         rows[label] = row
-        print(f"  {label:16s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] bf16: "
+        print(f"  {label:18s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] bf16 "
+              f"causal={spec.causal} {design.variant} ({design.n_splits} split): "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"sdpa {row['library_ms']:.4f} ms (|sdpa-plain| {lib_err:.2e}), "
+              f"sdpa ({sdpa_form}) {row['library_ms']:.4f} ms, sdpa (bool mask) "
+              f"{row['library_mask_ms']:.4f} ms (|sdpa-plain| {lib_err['own']:.2e}, "
+              f"{lib_err['mask']:.2e}), kernel/sdpa {row['ms'] / row['library_ms']:.3f}, "
               f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
               f"({n_bytes} B, {n_ops} flop); card {card}", flush=True)
         del q, k, v, ref, qt, kt, vt, mask
+
+    # What the tile kernel's time is made of: non-causal calls at the training
+    # shape over 1, 8 and 16 KV tiles of 64 keys (a line through them splits a
+    # call into a fixed cost and a cost per tile), and over 8 tiles that each
+    # hold one PAD slot, so that every tile takes the masked path.
+    tile_cost = {}
+    for label, skv, pad in (("kv64", 64, False), ("kv512", 512, False),
+                            ("kv1024", 1024, False), ("kv512_masked", 512, True)):
+        q, k, v = inputs(TRAIN_BATCH, TRAIN_SEQ, skv, *t_heads, torch.bfloat16)
+        q_pos, kv_pos = arange(0, TRAIN_SEQ), arange(0, skv)
+        if pad:
+            kv_pos[::64] = FA.PAD_POS
+        tile_cost[label] = time_ms(lambda: FA.flash_attention(
+            q, k, v, q_pos, kv_pos, AttnSpec(causal=False)))
+        del q, k, v
+    slope = (tile_cost["kv1024"] - tile_cost["kv64"]) / 15
+    fixed = tile_cost["kv64"] - slope
+    masked = (tile_cost["kv512_masked"] - fixed) / 8
+    print(f"  tile kernel cost, non-causal q [{TRAIN_BATCH},{TRAIN_SEQ},{t_heads[0]},"
+          f"{t_heads[2]}]: {tile_cost} ms; fixed {fixed:.4f} ms + {slope:.4f} ms per "
+          f"KV tile; masked tiles {masked:.4f} ms per tile; card {card}", flush=True)
+    rows["tile_cost"] = tile_cost
 
     # Codec kernels at the largest tensor the train step hands them, the
     # embedding's grad [vocab, d_model] in fp32 (one launch each).
@@ -926,10 +1056,15 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:122",
         "launches": serve_counts["flash_attention"],
         "launches_by_path": by_path("flash_attention"),
+        "launches_by_design": {"serve": serve_variants, "train": train_variants,
+                               "mamba2_serve": mserve_variants,
+                               "mamba2_train": mtrain_variants},
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"],
+        "rows": {k: r for k, r in rows.items()
+                 if k.startswith(("decode_", "prefill", "train", "tile_cost"))},
     }]
     for name, line in (("quantize_absmax", 92), ("quantize_int8", 101),
                        ("dequantize_int8", 120)):
