@@ -22,9 +22,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
    stacked leaf) and the int8_ef residual;
-5. the SSD scan kernel against its plain version, fp32 and bf16, y and the
-   final state: the reference's kernel test cases, the mamba2 training
-   shape and the prefill shape (224 of 256 rows padding); and the autograd
+5. the SSD scan kernels against the plain version, fp32 and bf16, y and
+   the final state: the reference's kernel test cases, the mamba2 training
+   shape, the prefill shape (224 of 256 rows padding) and cases aimed at the
+   tensor-core design (two groups, an odd count of q tiles, n = 256, a
+   misaligned slice that must take the CUDA-core kernel), each call gated
+   on the design ``SSD.plan`` picks, the tensor-core kernel's distance to
+   its emulation ``ssd_mma_plain`` printed beside; and the autograd
    Function's gradients against autograd through the plain version;
 6. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
    (batch 4, prompt 32, 32 generated tokens), with every kernel's launches
@@ -41,11 +45,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    plain version, bit for bit; then a train step profiled as in phase 7;
 10. full-width mamba2-370m served as in phase 6: decode is the recurrence,
     so no SSD launch;
-11. mamba2-370m's decode loop against ``MD.prefill`` (48 SSD launches) at
-    full width: logits, conv tails and final SSD states asserted in fp32,
-    reported in bf16; a bf16 decode step profiled;
-12. full-width mamba2-370m trained as in phase 8 (8 x 48 SSD launches),
-    then a train step profiled;
+11. mamba2-370m's decode loop against ``MD.prefill`` (48 SSD launches: the
+    CUDA-core kernel in fp32, the tensor-core kernel in bf16) at full width:
+    logits, conv tails and final SSD states asserted in fp32, reported in
+    bf16; a bf16 decode step profiled;
+12. full-width mamba2-370m trained as in phase 8 (8 x 48 SSD launches, all
+    on the tensor-core kernel), then a train step profiled with its SSD
+    forward on the tensor-core kernel, on the CUDA-core kernel and on the
+    tensor-core kernel again;
 13. timings: each kernel, its plain version and the one-call library
     yardstick where there is one (the port never calls it), each the median
     of 50 runs timed with CUDA events, L2 flushed before each run, beside
@@ -53,7 +60,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     4096 slots), prefill and the training shape, causal (``AttnSpec()``'s
     default) and not, each against SDPA in its own mask form (none, or
     ``is_causal``) and given the mask as a boolean tensor; then the tile
-    kernel's fixed cost and cost per KV tile, full and masked.
+    kernel's fixed cost and cost per KV tile, full and masked. The SSD scan's
+    two designs at the training and prefill shapes on the same inputs, and
+    the tensor-core kernel's fixed cost and cost per chunk.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -63,6 +72,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -71,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARCH = "qwen2.5-3b"
@@ -130,12 +141,31 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log_path):
+    """{entry function: {"registers", "spill_stores", "spill_loads"}} from
+    an ``nvcc -Xptxas -v`` log."""
+    out, name = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                out[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+            elif name and "spill stores" in line:
+                words = line.replace(",", "").split()
+                out[name]["spill_stores"] = int(words[words.index("spill") - 2])
+                out[name]["spill_loads"] = int(words[-4])
+            elif name and "Used" in line and "registers" in line:
+                words = line.replace(",", " ").split()
+                out[name]["registers"] = int(words[words.index("registers") - 1])
+    return out
+
+
 PORTED_KERNELS = (  # (name, substring of its device kernel's name); first wins
     ("flash_attention", "flash_fwd_"),     # its three designs and the combine
     ("dequantize_int8", "dequantize_kernel"),
     ("quantize_absmax", "absmax_kernel"),
     ("quantize_int8", "quantize_kernel"),
-    ("ssd_scan", "ssd_scan_kernel"),
+    ("ssd_scan", "ssd_scan_"),             # both designs
 )
 
 
@@ -144,7 +174,8 @@ def profile_steps(torch, run, steps, what, card):
     then a ``torch.profiler`` trace of as many steps, read from its
     Chrome-trace export (device busy time, idle share, top kernels, and
     the port's own kernels). ``run()`` runs one step; it is called once
-    first to warm up."""
+    first to warm up. Returns the host and device ms per step (None for the
+    device when the trace holds no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     def run_all():
@@ -169,7 +200,7 @@ def profile_steps(torch, run, steps, what, card):
     print(f"  {what}: host wall {wall_ms:.3f} ms/step (no profiler); card {card}")
     if not kernels:
         print("  device time: not measured (the trace holds no kernel events)")
-        return
+        return {"wall_ms": wall_ms, "busy_ms": None}
     busy, end = 0.0, float("-inf")
     for e in kernels:                              # union of kernel intervals
         s, t = e["ts"], e["ts"] + e["dur"]
@@ -194,6 +225,7 @@ def profile_steps(torch, run, steps, what, card):
     print("  the port's kernels: " + ", ".join(
         f"{k} {ported[k][1] / steps / 1e3:.4f} ms/step ({ported[k][0] // steps}x)"
         for k, _ in PORTED_KERNELS if k in ported))
+    return {"wall_ms": wall_ms, "busy_ms": busy / steps / 1e3}
 
 
 def main() -> None:
@@ -211,6 +243,7 @@ def main() -> None:
     from repro_torch.data import make_batch_for
     from repro_torch.dist import compression as C
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import nvcc
     from repro_torch.kernels import quantize as Q
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.launch import serve, train
@@ -230,12 +263,22 @@ def main() -> None:
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         FA.LAUNCHES_BY_VARIANT = dict.fromkeys(FA.VARIANTS, 0)
+        SSD.LAUNCHES_BY_VARIANT = dict.fromkeys(SSD.VARIANTS, 0)
 
     def read_counts():
         return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     def read_variants():
         return dict(FA.LAUNCHES_BY_VARIANT)
+
+    def read_ssd_variants():
+        return dict(SSD.LAUNCHES_BY_VARIANT)
+
+    def gate_ssd_variants(what, got, **want):
+        want = {v: want.get(v, 0) for v in SSD.VARIANTS}
+        print(f"  ssd_scan launches by design {got} (expected {want})", flush=True)
+        if got != want:
+            fail(f"{what} launched the SSD designs {got}, expected {want}")
 
     def gate_variants(what, got, **want):
         want = {v: want.get(v, 0) for v in FA.VARIANTS}
@@ -255,8 +298,9 @@ def main() -> None:
     # ---- 2. build ---------------------------------------------------------
     phase("build (one nvcc per source, in parallel)")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
-        libs = list(ex.map(lambda m: m.build(), (FA, Q, SSD)))
+    sources = (FA.SOURCE, Q.SOURCE, *SSD.SOURCES)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        libs = list(ex.map(nvcc.build, sources))
     print(f"built in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         print(f"  {os.path.relpath(lib, REPO)}")
@@ -265,6 +309,7 @@ def main() -> None:
                 if any(w in line for w in ("entry function", "registers", "spill",
                                            "build_s")):
                     print("    " + line.strip())
+    ptxas = dict(kv for lib in libs for kv in ptxas_usage(lib + ".log").items())
 
     # ---- 3. flash attention against plain -------------------------------
     phase("flash_attention kernel vs plain version")
@@ -500,15 +545,16 @@ def main() -> None:
     ssd_prefill = (BATCH, ms.chunk_size, m_heads, ms.head_dim, ms.n_groups,
                    ms.d_state, ms.chunk_size)
 
-    def ssd_inputs(b, l, h, p, g, n, chunk, dtype, real=None):
+    def ssd_inputs(b, l, h, p, g, n, chunk, dtype, real=None, pad=0):
         """x, dt, A, B, C, D scaled as the reference's kernel tests. x, B and
-        C are slices of one [b, l, h*p + 2*g*n] tensor, as the model hands
-        them over (the conv output), so the kernel reads them through
-        strides. Rows from ``real`` on are zero, dt too, as
-        ``mamba2_forward`` pads a prompt up to a chunk multiple."""
+        C are slices of one [b, l, h*p + 2*g*n + pad] tensor, as the model
+        hands them over (the conv output), so the kernels read them through
+        strides; pad = 4 leaves bf16 rows that are not 16-byte aligned. Rows
+        from ``real`` on are zero, dt too, as ``mamba2_forward`` pads a
+        prompt up to a chunk multiple."""
         def r(*shape):
             return torch.randn(shape, generator=gen, device=dev)
-        xbc = torch.cat([r(b, l, h * p) * 0.5, r(b, l, 2 * g * n) * 0.3], dim=-1)
+        xbc = torch.cat([r(b, l, h * p) * 0.5, r(b, l, 2 * g * n + pad) * 0.3], dim=-1)
         dt = F.softplus(r(b, l, h)) * 0.2
         if real is not None:
             xbc[:, real:] = 0
@@ -516,40 +562,88 @@ def main() -> None:
         xbc = xbc.to(dtype)
         x = xbc[..., :h * p].unflatten(-1, (h, p))
         B = xbc[..., h * p:h * p + g * n].unflatten(-1, (g, n))
-        C = xbc[..., h * p + g * n:].unflatten(-1, (g, n))
+        C = xbc[..., h * p + g * n:h * p + 2 * g * n].unflatten(-1, (g, n))
         return x, dt, -torch.exp(r(h) * 0.3), B, C, torch.ones(h, device=dev)
 
-    ssd_cases = ([(f"ref{c}", c, None) for c in SSD_CASES]
-                 + [(f"train{list(ssd_train)}", ssd_train, None),
-                    (f"prefill{list(ssd_prefill)} {PROMPT} real", ssd_prefill, PROMPT)])
-    ssd_err = None
+    def ssd_design(ins, chunk):
+        x, _, _, B, C, _ = ins
+        return SSD.plan(x.shape, B.shape, x.dtype, chunk,
+                        (x.stride(), B.stride(), C.stride()),
+                        (x.data_ptr(), B.data_ptr(), C.data_ptr())).variant
+
+    # (label, case, real rows, pad, design in bf16); fp32 always takes the
+    # CUDA-core kernel. The reference's third case (p 16, n 32) is the only
+    # one the tensor-core kernel takes; the aimed cases cover two groups, an
+    # odd count of q tiles (chunk 48), n = 256 and a misaligned slice.
+    ssd_cases = ([(f"ref{c}", c, None, 0, "mma" if c == SSD_CASES[2] else "cuda_core")
+                  for c in SSD_CASES]
+                 + [(f"train{list(ssd_train)}", ssd_train, None, 0, "mma"),
+                    (f"prefill{list(ssd_prefill)} {PROMPT} real", ssd_prefill, PROMPT,
+                     0, "mma"),
+                    ("mma_groups", (2, 128, 4, 32, 2, 64, 64), None, 0, "mma"),
+                    ("mma_odd_q_tiles", (1, 96, 2, 128, 1, 16, 48), None, 0, "mma"),
+                    ("mma_n256", (2, 256, 4, 64, 1, 256, 128), None, 0, "mma"),
+                    ("misaligned_rows", (2, 128, 4, 64, 1, 128, 64), None, 4,
+                     "cuda_core")])
+    ssd_err = ssd_mma_gap = None
+    ssd_designs_seen = collections.Counter()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = SSD_TOL[dname]
-        for label, case, real in ssd_cases:
-            ins = ssd_inputs(*case, dtype, real=real)
+        for label, case, real, pad, design in ssd_cases:
+            design = design if dtype == torch.bfloat16 else "cuda_core"
+            ins = ssd_inputs(*case, dtype, real=real, pad=pad)
+            if ssd_design(ins, case[-1]) != design:
+                fail(f"SSD.plan sends {dname} {label} to {ssd_design(ins, case[-1])}, "
+                     f"expected {design}")
+            before = read_ssd_variants()
             y, st = SSD.ssd_scan(*ins, case[-1])
             yp, sp = SSD.ssd_plain(*ins, chunk=case[-1], return_state=True)
             torch.cuda.synchronize()
+            launched = {d: c - before[d] for d, c in read_ssd_variants().items()
+                        if c != before[d]}
+            ssd_designs_seen.update(launched)
             errs = [(a.float() - b.float()).abs().max().item() for a, b in ((y, yp), (st, sp))]
             ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
                      for a, b in ((y, yp), (st, sp)))
-            print(f"  {dname:8s} {label:44s} y max_abs_err={errs[0]:.3e} state "
-                  f"max_abs_err={errs[1]:.3e} (max |y| {yp.float().abs().max().item():.3f}) "
-                  f"tol={tol:g} {'ok' if ok else 'FAIL'}", flush=True)
+            gap = ""
+            if design == "mma":
+                ym, sm = SSD.ssd_mma_plain(*ins, chunk=case[-1])
+                gaps = [(a.float() - b.float()).abs().max().item()
+                        for a, b in ((y, ym), (st, sm))]
+                gap = f" | vs ssd_mma_plain y {gaps[0]:.3e} state {gaps[1]:.3e}"
+                if case == ssd_train:
+                    ssd_mma_gap = max(gaps)
+                del ym, sm
+            print(f"  {dname:8s} {label:44s} {design:9s} y max_abs_err={errs[0]:.3e} "
+                  f"state max_abs_err={errs[1]:.3e} (max |y| "
+                  f"{yp.float().abs().max().item():.3f}) tol={tol:g} "
+                  f"{'ok' if ok else 'FAIL'}{gap}", flush=True)
+            if launched != {design: 1}:
+                fail(f"ssd_scan {dname} {label} launched {launched}, expected {design}")
             if not ok:
                 fail(f"ssd_scan disagrees with its plain version: {dname} {label} {errs}")
             if dtype == torch.bfloat16 and case == ssd_train:
                 ssd_err = max(errs)
+            del ins, y, st, yp, sp
+    print(f"  SSD launches by design over these cases: {dict(ssd_designs_seen)}",
+          flush=True)
+    if set(ssd_designs_seen) != set(SSD.VARIANTS):
+        fail(f"the SSD cases did not run every design: {dict(ssd_designs_seen)}")
 
-    # The training path's autograd Function: forward is the kernel, backward
-    # recomputes the plain version; the final state goes unused, as in
-    # training, so its gradient comes in as None.
+    # The training path's autograd Function: forward is the kernel (the
+    # tensor-core one in bf16), backward recomputes the plain version; the
+    # final state goes unused, as in training, so its gradient comes in as
+    # None.
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         tol = SSD_TOL[dname]
         ins = [t.detach().requires_grad_(True) for t in ssd_inputs(*ssd_train, dtype)]
+        before = read_ssd_variants()
         y, _ = SSD.SSDScan.apply(*ins, ms.chunk_size)
+        design = "mma" if dtype == torch.bfloat16 else "cuda_core"
+        if read_ssd_variants()[design] != before[design] + 1:
+            fail(f"SSDScan {dname} forward did not run the {design} kernel")
         yp = SSD.ssd_plain(*ins, chunk=ms.chunk_size)
         go = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
         got = torch.autograd.grad(y, ins, go)
@@ -574,6 +668,7 @@ def main() -> None:
                          "--device", "cuda"])
     serve_counts = read_counts()
     serve_variants = read_variants()
+    serve_ssd = read_ssd_variants()
     expected = {"flash_attention": (PROMPT + GEN) * full.n_layers,
                 "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0,
                 "ssd_scan": 0}
@@ -585,6 +680,7 @@ def main() -> None:
     if serve_counts != expected:
         fail(f"serve launched the kernels {serve_counts}, expected {expected}")
     gate_variants("serve", serve_variants, split_kv=(PROMPT + GEN) * full.n_layers)
+    gate_ssd_variants("serve", serve_ssd)
     if not torch.isfinite(served.logits.float()).all():
         fail("serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
@@ -652,6 +748,7 @@ def main() -> None:
     trained = train.main(train_argv)
     train_counts = read_counts()
     train_variants = read_variants()
+    train_ssd = read_ssd_variants()
     # One kernel forward per layer per step (the backward recomputes the
     # plain version); one launch of each codec kernel per parameter tensor
     # per step, the tensors grouped into the reference's leaves.
@@ -674,6 +771,7 @@ def main() -> None:
     if train_counts != expected:
         fail(f"train launched the kernels {train_counts}, expected {expected}")
     gate_variants("train", train_variants, tile=TRAIN_STEPS * tcfg_full.n_layers)
+    gate_ssd_variants("train", train_ssd)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"train losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -745,6 +843,7 @@ def main() -> None:
                          "--device", "cuda"])
     mserve_counts = read_counts()
     mserve_variants = read_variants()
+    mserve_ssd = read_ssd_variants()
     expected = {k: 0 for k in counters}     # decode runs the O(1) recurrence
     rep = served.report
     print(f"  launches {mserve_counts} (expected {expected}); "
@@ -754,6 +853,7 @@ def main() -> None:
     if mserve_counts != expected:
         fail(f"{SSM_ARCH} serve launched the kernels {mserve_counts}, expected {expected}")
     gate_variants(f"{SSM_ARCH} serve", mserve_variants)
+    gate_ssd_variants(f"{SSM_ARCH} serve", mserve_ssd)
     if not torch.isfinite(served.logits.float()).all():
         fail(f"{SSM_ARCH} serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
@@ -769,6 +869,7 @@ def main() -> None:
     # for the served bf16 model, whose decode steps are then profiled.
     phase(f"{SSM_ARCH} decode loop vs MD.prefill at full width")
     mprompt = make_batch_for(mfull, BATCH, PROMPT)["tokens"].to(dev)
+    prefill_ssd = {}
     for dname in ("float32", "bfloat16"):
         cfg = dataclasses.replace(mfull, dtype=dname, param_dtype=dname)
         with torch.inference_mode():
@@ -783,9 +884,12 @@ def main() -> None:
             pre, pcaches = MD.prefill(params, cfg, {"tokens": mprompt})
             torch.cuda.synchronize()
             prefill_counts = read_counts()
+            prefill_ssd[dname] = read_ssd_variants()
         want = {**{k: 0 for k in counters}, "ssd_scan": cfg.n_layers}
         if prefill_counts != want:
             fail(f"{SSM_ARCH} prefill launched {prefill_counts}, expected {want}")
+        gate_ssd_variants(f"{SSM_ARCH} {dname} prefill", prefill_ssd[dname],
+                          **{"mma" if dname == "bfloat16" else "cuda_core": cfg.n_layers})
         err = (dec.float() - pre.float()).abs().max().item()
         ok = torch.allclose(dec.float(), pre.float(), atol=TOL["bfloat16"],
                             rtol=TOL["bfloat16"])
@@ -827,6 +931,7 @@ def main() -> None:
     mtrained = train.main(["--arch", SSM_ARCH] + train_argv[2:])
     mtrain_counts = read_counts()
     mtrain_variants = read_variants()
+    mtrain_ssd = read_ssd_variants()
     # One kernel forward per layer per step (the backward recomputes the
     # plain version); the codec as in phase 8, over the mamba2 tree.
     mgroups = reference_leaves(MD.init_model(
@@ -846,6 +951,7 @@ def main() -> None:
     if mtrain_counts != expected:
         fail(f"{SSM_ARCH} train launched the kernels {mtrain_counts}, expected {expected}")
     gate_variants(f"{SSM_ARCH} train", mtrain_variants)
+    gate_ssd_variants(f"{SSM_ARCH} train", mtrain_ssd, mma=TRAIN_STEPS * mfull.n_layers)
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         fail(f"{SSM_ARCH} train losses not finite: {losses}")
     if not losses[-1] < losses[0]:
@@ -857,9 +963,22 @@ def main() -> None:
     batch = {k: v.to(dev) for k, v in make_batch_for(
         mfull, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
     step_fn = TS.make_train_step(mfull, tcfg)
-    profile_steps(torch, train_one, 2,     # phase 9's train_one, on these
-                  f"{SSM_ARCH} train step at full width, bf16, batch {TRAIN_BATCH} "
-                  f"x seq {TRAIN_SEQ}, adamw + int8_ef", card)
+    what = (f"{SSM_ARCH} train step at full width, bf16, batch {TRAIN_BATCH} x seq "
+            f"{TRAIN_SEQ}, adamw + int8_ef")
+    # The step on the path's design (mma), then with the SSD forward sent to
+    # the CUDA-core kernel (``SSD.plan`` replaced for this comparison only),
+    # then on mma again: what the design is worth end to end on one card.
+    step_stats = collections.defaultdict(list)
+    for design in ("mma", "cuda_core", "mma"):
+        with contextlib.ExitStack() as stack:
+            if design == "cuda_core":
+                stack.enter_context(unittest.mock.patch.object(
+                    SSD, "plan", lambda x_shape, B_shape, dtype, chunk, *_, **__: SSD.Plan(
+                        "cuda_core", SSD.smem_bytes(x_shape[3], B_shape[3], chunk))))
+            step_stats[design].append(profile_steps(   # phase 9's train_one, on these
+                torch, train_one, 2, f"{what}, SSD forward on {design}", card))
+    print(f"  {SSM_ARCH} train step by SSD forward design (host wall, device busy "
+          f"ms/step): {dict(step_stats)}; card {card}", flush=True)
     del holder, step_fn, batch
     torch.cuda.empty_cache()
 
@@ -1005,31 +1124,69 @@ def main() -> None:
               f"{r['bound_ms']:.6f} ms by {bound_by} ({n_bytes} B, {n_ops} op); "
               f"card {card}", flush=True)
 
-    # The SSD kernel at the mamba2 training shape and the prefill check's
-    # padded shape, bf16. Bytes: each input read once, y and the state written
-    # once. Operations: per (b, h, chunk), C·Bᵀ and its product with x over the
-    # causal (q, k) pairs only, 2·pairs·(N + P), and the inter-chunk and state
-    # products, 2·2·Q·P·N; the padded rows are counted, as the call gets them.
-    # No single PyTorch call computes the SSD scan: library none.
+    # The SSD kernels at the mamba2 training shape and the prefill check's
+    # padded shape, bf16: the design the path takes (``plan``: mma) and the
+    # CUDA-core kernel on the same inputs, timed in turns (mma, CUDA-core,
+    # CUDA-core, mma; each design's time is the mean of its two medians).
+    # Bytes: each input read once, y and the state written once. Operations:
+    # per (b, h, chunk), C·Bᵀ and its product with x over the causal (q, k)
+    # pairs only, 2·pairs·(N + P), and the inter-chunk and state products,
+    # 2·2·Q·P·N; the padded rows are counted, as the call gets them. No single
+    # PyTorch call computes the SSD scan: library none.
+    ssd_entry = {"mma": f"ssd_scan_mma_kernelILi{ms.head_dim}ELi{ms.d_state}E",
+                 "cuda_core": "ssd_scan_kernelI13__nv_bfloat16E"}
+    ssd_regs = {d: next(v for k, v in ptxas.items() if sub in k)
+                for d, sub in ssd_entry.items()}
     for label, case, real in (("ssd_train", ssd_train, None),
                               ("ssd_prefill", ssd_prefill, PROMPT)):
         b, l, h, p, g, n, Q = case
         ins = ssd_inputs(*case, torch.bfloat16, real=real)
+        if ssd_design(ins, Q) != "mma":
+            fail(f"SSD.plan does not send {label} to the mma kernel")
+        core = SSD.Plan("cuda_core", SSD.smem_bytes(p, n, Q))
         outs = SSD.ssd_scan(*ins, Q)
         n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
         pairs = Q * (Q + 1) // 2
         n_ops = b * h * (l // Q) * (2 * pairs * (n + p) + 4 * Q * p * n)
         bound_ms, bound_by = bound(n_bytes, n_ops, "bfloat16")
+        turns = collections.defaultdict(list)
+        for design in ("mma", "cuda_core", "cuda_core", "mma"):
+            fn = ((lambda: SSD.ssd_scan(*ins, Q)) if design == "mma"
+                  else (lambda: SSD.launch(core, *ins, Q)))
+            turns[design].append(time_ms(fn))
+        design_ms = {d: sum(t) / len(t) for d, t in turns.items()}
         rows[label] = {
-            "ms": time_ms(lambda: SSD.ssd_scan(*ins, Q)),
+            "ms": design_ms["mma"], "cuda_core_ms": design_ms["cuda_core"],
+            "turns_ms": dict(turns),
             "plain_ms": time_ms(lambda: SSD.ssd_plain(*ins, chunk=Q, return_state=True)),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
         r = rows[label]
         print(f"  {label:16s} x [{b},{l},{h},{p}] B/C [{b},{l},{g},{n}] chunk {Q} bf16: "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library none "
-              f"(no PyTorch call computes the SSD scan), bound {bound_ms:.6f} ms by "
-              f"{bound_by} ({n_bytes} B, {n_ops} flop); card {card}", flush=True)
+              f"mma {r['ms']:.4f} ms {turns['mma']}, cuda_core {r['cuda_core_ms']:.4f} ms "
+              f"{turns['cuda_core']} ({r['cuda_core_ms'] / r['ms']:.1f}x), plain "
+              f"{r['plain_ms']:.4f} ms, library none (no PyTorch call computes the SSD "
+              f"scan), bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {n_ops} flop), "
+              f"mma/bound {r['ms'] / bound_ms:.1f}; card {card}", flush=True)
         del ins, outs
+    print(f"  ssd_scan registers and spills (-Xptxas -v): {ssd_regs}", flush=True)
+    # What the mma kernel's time is made of: 128 blocks (batch 4 x 32 heads,
+    # one wave on 132 SMs) over 1, 2 and 4 chunks of 256; a line through them
+    # splits a call into a fixed cost and a cost per chunk (a block's copies,
+    # products and barriers for one chunk, none of them overlapped by another
+    # block on its SM).
+    ssd_cost = {}
+    for n_chunks in (1, 2, 4):
+        case = (BATCH, n_chunks * ms.chunk_size, m_heads, ms.head_dim, ms.n_groups,
+                ms.d_state, ms.chunk_size)
+        ins = ssd_inputs(*case, torch.bfloat16)
+        ssd_cost[f"chunks{n_chunks}"] = time_ms(lambda: SSD.ssd_scan(*ins, ms.chunk_size))
+        del ins
+    per_chunk = (ssd_cost["chunks4"] - ssd_cost["chunks1"]) / 3
+    ssd_fixed = ssd_cost["chunks1"] - per_chunk
+    print(f"  ssd_scan mma cost, x [{BATCH},256k,{m_heads},{ms.head_dim}] (one wave): "
+          f"{ssd_cost} ms; fixed {ssd_fixed:.4f} ms + {per_chunk:.4f} ms per chunk of "
+          f"{ms.chunk_size}; card {card}", flush=True)
+    rows["ssd_cost"] = {**ssd_cost, "fixed_ms": ssd_fixed, "per_chunk_ms": per_chunk}
     # The training path's backward has no kernel: SSDScan recomputes the plain
     # version under autograd. Its time per layer, for the step's breakdown.
     ins = [t.detach().requires_grad_(True)
@@ -1083,15 +1240,24 @@ def main() -> None:
     r = rows["ssd_train"]
     kernels.append({
         "name": "ssd_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_mma.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:92",
         "launches": mtrain_counts["ssd_scan"],
         "launches_by_path": by_path("ssd_scan"),
-        "max_abs_err": ssd_err,
+        "launches_by_design": {"serve": serve_ssd, "train": train_ssd,
+                               "mamba2_serve": mserve_ssd, "mamba2_train": mtrain_ssd,
+                               **{f"mamba2_prefill_check_{k}": v
+                                  for k, v in prefill_ssd.items()}},
+        "max_abs_err": ssd_err, "max_abs_err_vs_mma_plain": ssd_mma_gap,
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None,
-        "prefill_shape": rows["ssd_prefill"],
+        "designs": {d: {"source": f"src/repro_torch/kernels/csrc/{src}",
+                        "train_ms": rows["ssd_train"][key],
+                        "prefill_ms": rows["ssd_prefill"][key], **ssd_regs[d]}
+                    for d, src, key in (("mma", "ssd_scan_mma.cu", "ms"),
+                                        ("cuda_core", "ssd_scan.cu", "cuda_core_ms"))},
+        "prefill_shape": rows["ssd_prefill"], "mma_cost": rows["ssd_cost"],
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

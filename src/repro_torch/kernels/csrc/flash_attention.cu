@@ -68,9 +68,9 @@
 #include <limits.h>
 #include <math.h>
 
-namespace {
+#include "mma_sm90.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -308,7 +308,7 @@ cudaError_t launch_cuda_core(const Args& a, int B, cudaStream_t stream) {
 }
 
 // ===========================================================================
-// Tensor-core building blocks (PTX: cp.async, ldmatrix, mma.sync)
+// Tensor-core kernels: shared tiles (building blocks in mma_sm90.cuh)
 // ===========================================================================
 
 constexpr int kRows = 64;        // q rows of a tile block; kv rows of a K/V tile
@@ -323,67 +323,6 @@ struct Tiles {
   static constexpr int kChunks = HD / 8;      // 16-byte chunks per row
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate. Fragments (g = lane/4,
-// t = lane%4): c[0..1] row g, cols 2t..2t+1; c[2..3] row g+8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ int warp_min_int(int x) {
   for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -397,8 +336,8 @@ __device__ __forceinline__ int warp_max_int(int x) {
 // The tensor-core kernels keep scores, m and the combine's weights in log2
 // units (times log2 e), so that exp is one ex2 after one FFMA. The NEG_INF of
 // a masked key is not scaled: it stays below every real score, exp2(NEG_INF -
-// m) is 0 against a real max m and 1 against m = NEG_INF, as exp was.
-constexpr float kLog2e = 1.4426950408889634f;
+// m) is 0 against a real max m and 1 against m = NEG_INF, as exp was
+// (kLog2e: mma_sm90.cuh).
 
 // A warp's scores in log2 units, with the mask: scale, softcap, then NEG_INF
 // for a masked key and -inf for a slot past the keys. Column j of n-tile n is

@@ -2,14 +2,16 @@
 
 Each ``csrc/*.cu`` file is compiled on its own for ``sm_90a`` into a shared
 library with a plain C interface, under ``kernels/build/`` (git-ignored),
-named by the hash of the source and the flags, so an edited source is
-rebuilt. The compiler's output (registers, spills) is kept beside the
+named by the hash of the source, of every ``csrc`` header it includes
+(``#include "..."``, followed through headers) and of the flags, so an
+edited source or header is rebuilt. The compiler's output (registers, spills) is kept beside the
 library as ``<library>.log``. Nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,9 +35,27 @@ def _nvcc() -> str:
                        "the port's kernels are built from source")
 
 
-def library_path(source: str) -> str:
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(source: str, seen=None) -> bytes:
+    """The bytes of ``source`` followed by those of each local header it
+    includes, depth first, each file once."""
+    seen = set() if seen is None else seen
+    seen.add(source)
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        data = f.read()
+    out = [data]
+    for name in _INCLUDE.findall(data):
+        header = os.path.join(os.path.dirname(source), name.decode())
+        if header not in seen:
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
+def library_path(source: str) -> str:
+    digest = hashlib.sha256(_source_bytes(source)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:16]}.so")
 

@@ -238,6 +238,21 @@ def test_ssd_source_is_for_hopper():
     assert f"kMaxP = {SSD.MAX_HEAD_DIM}" in src and str(SSD.MAX_SMEM) in src
     assert SSD.library_path().startswith(nvcc.BUILD_DIR)
     assert os.path.basename(SSD.library_path()).startswith("libssd_scan-")
+    # each design's kernel and its source: cuda_core above, mma here
+    assert SSD.SOURCES == (SSD.SOURCE, SSD.MMA_SOURCE)
+    assert "ssd_scan_kernel" in src
+    mma = open(SSD.MMA_SOURCE).read()
+    assert mma.count("__global__") == 1 and "ssd_scan_mma_kernel" in mma
+    assert "src/repro/kernels/ssd_scan.py" in mma
+    for needle in ("cudaFuncAttributeMaxDynamicSharedMemorySize",
+                   "cudaGetLastError", "extern \"C\" int ssd_scan_mma_forward",
+                   "#include \"mma_sm90.cuh\"", "mma_bf16(", "ldsm_x4_trans(",
+                   "cp_async16("):
+        assert needle in mma, needle
+    assert f"kRowTile = {SSD.MMA_ROWS};" in mma
+    assert f"kMaxState = {SSD.MMA_MAX_STATE};" in mma and str(SSD.MAX_SMEM) in mma
+    assert os.path.basename(SSD.library_path(SSD.MMA_SOURCE)).startswith(
+        "libssd_scan_mma-")
 
 
 @pytest.mark.parametrize("argv", [
