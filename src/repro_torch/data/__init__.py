@@ -1,4 +1,5 @@
 """Deterministic synthetic data (no downloads)."""
-from repro_torch.data.synthetic import TokenStream, make_batch_for
+from repro_torch.data.synthetic import (TokenStream, image_batch, lenet_batch,
+                                        make_batch_for)
 
-__all__ = ["TokenStream", "make_batch_for"]
+__all__ = ["TokenStream", "image_batch", "lenet_batch", "make_batch_for"]

@@ -1,17 +1,18 @@
-"""Synthetic LM tokens (deterministic, step-indexed), as torch tensors.
+"""Synthetic data (deterministic, step-indexed), as torch tensors: LM
+tokens and LeNet image batches.
 
 The draws are the reference's numpy draws (``SeedSequence([seed, step])``),
-so a batch is bit-equal to ``repro.data.TokenStream``'s for the same
-arguments.
+so a batch is bit-equal to ``repro.data``'s for the same arguments.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.lenet5 import DATASET_SHAPES, LeNet5Config, N_CLASSES
 
 
 class TokenStream:
@@ -40,3 +41,26 @@ def make_batch_for(cfg: ModelConfig, batch: int, seq: int, step: int = 0,
     if cfg.frontend != "none" or cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: frontend inputs not ported yet")
     return {"tokens": TokenStream(cfg.vocab_size, batch, seq, seed).batch(step)}
+
+
+def image_batch(shape, batch: int, step: int, seed: int = 0
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """``repro.data.synthetic.image_batch``'s draws as numpy: images
+    ``[batch, *shape]`` fp32 N(0, 1) and int32 labels in [0, 10)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    images = rng.normal(size=(batch,) + tuple(shape)).astype(np.float32)
+    labels = rng.integers(0, N_CLASSES, size=(batch,)).astype(np.int32)
+    return images, labels
+
+
+def lenet_batch(cfg: LeNet5Config, step: int = 0, seed: int = 0,
+                batch: Optional[int] = None, device="cpu"
+                ) -> Dict[str, torch.Tensor]:
+    """The reference's LeNet batch in the port's layout: images NCHW (the
+    reference's NHWC draws, transposed on the host), labels int64 (torch's
+    index type), both on ``device``."""
+    images, labels = image_batch(DATASET_SHAPES[cfg.dataset],
+                                 batch or cfg.batch_size, step, seed)
+    nchw = np.ascontiguousarray(images.transpose(0, 3, 1, 2))
+    return {"images": torch.from_numpy(nchw).to(device),
+            "labels": torch.from_numpy(labels.astype(np.int64)).to(device)}

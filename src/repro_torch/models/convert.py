@@ -4,7 +4,9 @@
 with numpy leaves (per-layer leaves stacked ``[n_layers, ...]``), unstacks
 the layers and turns every ``[d_in, d_out]`` dense kernel into a
 ``[d_out, d_in]`` ``F.linear`` weight, so both packages compute the same
-function; bare arrays keep their layout.
+function; bare arrays keep their layout. ``lenet_params_from_jax`` does the
+same for LeNet-5's weights (HWIO convs, fc1's rows in the port's flatten
+order).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.lenet5 import LeNet5Config
+from repro_torch.models.lenet import feature_dims
 from repro_torch.models.model import build_segments
 
 
@@ -64,3 +68,19 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     if "lm_head" in tree:
         params["lm_head"] = _dense(tree["lm_head"], dev)
     return params
+
+
+def lenet_params_from_jax(tree: Dict[str, Any], cfg: LeNet5Config,
+                          device="cuda") -> Dict[str, torch.Tensor]:
+    """``repro.models.lenet.init_lenet``'s tree (``Param`` leaves or their
+    numpy values) in the port's layout: convs HWIO -> OIHW, dense kernels
+    ``[d_in, d_out]`` -> ``[d_out, d_in]``, and fc1's input rows from the
+    reference's (H, W, C) flatten order into the port's (C, H, W)."""
+    dev = resolve_device(device)
+    a = {k: np.asarray(getattr(v, "value", v)) for k, v in tree.items()}
+    h, w, _ = feature_dims(cfg)
+    c = 2 * cfg.n_filters
+    fc1 = a["fc1"].reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(h * w * c, -1)
+    out = {name: a[name].transpose(3, 2, 0, 1) for name in ("conv1", "conv2")}
+    out.update(fc1=fc1.T, fc2=a["fc2"].T, out=a["out"].T)
+    return {k: _tensor(np.ascontiguousarray(v), dev) for k, v in out.items()}

@@ -108,6 +108,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def activation_fn(name: str):
+    """The LeNet activations of ``repro.models.layers.activation_fn``."""
+    fns = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+    if name not in fns:
+        raise ValueError(f"activation {name!r} is not ported (have {sorted(fns)})")
+    return fns[name]
+
+
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, params["weight"], params.get("bias"))
 

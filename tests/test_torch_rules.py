@@ -284,3 +284,44 @@ def test_train_dry_run(capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == plan
     assert plan["dry_run"] and plan["arch"] == "smollm-360m"
     assert plan["path"] == "single"
+
+
+def _port_launches():
+    return (FA.LAUNCHES, _codec_launches(), SSD.LAUNCHES)
+
+
+def test_fit_perfmodel_without_device_flag_needs_cuda(tmp_path):
+    """The paper pipeline defaults to the card: without --device it raises
+    on a machine with no CUDA device, before it measures or writes a row."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would sweep")
+    from repro_torch.launch import fit_perfmodel
+    rows = tmp_path / "rows.json"
+    before = _port_launches()
+    with pytest.raises(RuntimeError, match="cuda"):
+        fit_perfmodel.main(["--trials", "2", "--mode", "eager",
+                            "--rows-out", str(rows)])
+    assert not rows.exists()
+    assert _port_launches() == before
+
+
+def test_fit_perfmodel_cpu_report(tmp_path, capsys):
+    from repro_torch.launch import fit_perfmodel
+    rows_out = tmp_path / "rows.json"
+    before = _port_launches()
+    report = fit_perfmodel.main(["--device", "cpu", "--mode", "eager",
+                                 "--trials", "12", "--seed", "1",
+                                 "--rows-out", str(rows_out)])
+    out = capsys.readouterr().out
+    assert json.loads(out.strip().splitlines()[-1]) == report
+    assert "== LeNet-5 generic model (L2) ==" in out
+    assert "== scaling analysis (q = -1 ideal) ==" in out
+    assert report["device"] == "cpu" and report["mode"] == "eager"
+    assert report["rows"] == {"eager": {"ok": 12, "error": 0}}
+    assert (report["n_fit"], report["n_test"]) == (7, 5)
+    assert report["sweep_s"] > 0 and report["fit_s"] > 0
+    assert report["warmup_s"]["max"] >= report["warmup_s"]["median"] > 0
+    assert set(report["test_mape"]) == {"generic", "random_forest", "svr"}
+    rows = json.loads(rows_out.read_text())
+    assert len(rows) == 12 and all(r["mode"] == "eager" for r in rows)
+    assert _port_launches() == before          # the pipeline runs no kernel
