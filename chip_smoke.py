@@ -72,7 +72,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     the card, the Table-2/3 constants, the scaling report and the RF/SVR
     comparison, launching no port kernel; the generic model fitted to the
     checked-in arch-sweep rows at the recorded budget, its train MAE within
-    1.25x the recorded; ``cost_fn`` on the card against the CPU (rtol 1e-5).
+    1.25x the recorded; ``cost_fn`` on the card against the CPU (rtol 1e-5);
+15. the sharded half of the pipeline (``sharded_pipeline``) on one pool of
+    8 ranks sharing the card over gloo: (a) ``compressed_psum_mean`` (none,
+    bf16, int8) and ``compressed_psum_mean_ef`` over worlds of 2, 4 and 8
+    against rank 0's plain emulation (int8 means and residuals bit for bit,
+    none/bf16 within n*2^-23*max|x|), exactly one absmax and one quantize
+    launch per int8 call per rank; (b) the sharded LeNet-5 iteration at 8
+    ranks for dp, fsdp, tp (the fc pair split 8 ways) and fsdp_tp (4 x 2),
+    each with none and int8 (eager; int8 compiled as well), against the
+    single-process full-batch iteration (the reference test's tolerances,
+    eager with cuDNN off: its algorithm for a sub-batch differs from the full
+    batch's; compiled with cuDNN on),
+    jit against eager, and 5 absmax + 5 quantize launches per rank per int8
+    iteration (3 + 3 for tp, whose split leaves reduce over no axis); (c) a
+    measured
+    sweep through ``fit_perfmodel.main(["--sharded", ...])``: every row ok
+    with ``t_measured_sharded`` > 0, the link calibration and the three
+    fits run, and the codec kernels launched on the ranks.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -441,6 +458,299 @@ def paper_pipeline(torch, dev, card, reset_counts, read_counts):
               f"{int(finite.sum())} finite, largest relative difference card vs CPU "
               f"{err:.3e} (rtol {COST_RTOL})", flush=True)
     print(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+
+
+# Phase 15: a world of 8 ranks, one process each, all on the one card (gloo).
+SHARDED_WORLD = 8
+# (a) per-rank inputs of the collectives: a LeNet fc1 gradient, a conv
+# gradient, a ragged matrix and a vector
+COLLECTIVE_SHAPES = [(120, 400), (5, 5, 3, 16), (257, 129), (84,)]
+EF_STEPS = 3
+# (b) eager (cuDNN off) against the full-batch iteration within the
+# reference test's tolerances (tests/test_overlap_parity.py, LENET_SNIPPET):
+# (2e-5 + 1e-5 * max|g|) * lr for none, (2e-5 + 0.75 * shard_max / 127) * lr
+# for int8. jit (cuDNN on, as the sweep times it) against eager (cuDNN off)
+# of the same sharded body within the none tolerance widened by
+# SHARDED_CUDNN * lr: cuDNN's convolution algorithms for a rank's sub-batch
+# move conv1's new params by up to ~1e-4 * lr from the native ones (eager
+# with cuDNN on against off is printed). Under int8 at most one value in
+# SHARDED_CROSSINGS of a leaf may be off by one more step of the int8 grid
+# (lr * shard_max / 127): the compiled grads differ from eager's in the
+# last bits and can move a value across a rounding boundary of the codec.
+SHARDED_LOSS_TOL = 1e-5
+SHARDED_CUDNN = 5e-4
+SHARDED_CROSSINGS = 1000
+SHARDED_STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp")
+# (c) trials of the measured sweep: each compiles its single-device and its
+# sharded iteration (on every rank of the trial at once, ~50 s). Seed 12's
+# first two trials are fsdp_tp/int8 and tp/none at n = 2: the codec kernels,
+# a split fc pair and both wire formats' rows
+SHARDED_SWEEP_TRIALS, SHARDED_SWEEP_SEED = 2, 12
+# sharded iterations a rank runs in a measured trial: the warm-up and the
+# timed ones (perf/sweep.py's n_iters)
+SHARDED_TRIAL_ITERS = 1 + 3
+
+
+def _codec_calls(strategy, n):
+    """int8 collectives a rank runs in one sharded LeNet iteration: one per
+    leaf, but tp's split fc pair (n > 1) reduces over no axis."""
+    return 3 if strategy == "tp" and n > 1 else 5
+
+
+def _plain_collective(torch, xs, mode):
+    """Rank 0's plain emulation of ``compressed_psum_mean`` /
+    ``compressed_psum_mean_ef`` over every rank's input, on the CPU in fp32,
+    in the reference's order of operations (``dist/compression.py``)."""
+    x = torch.from_numpy(xs)                         # [steps, n, ...]
+    n = torch.full((), float(x.shape[1]))
+    means, residuals = [], []
+    err = torch.zeros(x.shape[1:])
+    for step in range(x.shape[0]):
+        xr = x[step]
+        if mode == "none":
+            means.append(xr.sum(0) / n)
+            continue
+        if mode == "bf16":
+            means.append(xr.to(torch.bfloat16).float().sum(0) / n)
+            continue
+        carried = xr + err if mode == "int8_ef" else xr
+        scale = carried.abs().amax() / torch.full((), 127.0)
+        safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.clamp(torch.round(carried / safe), -127, 127)
+        means.append(q.sum(0) * scale / n)
+        if mode == "int8_ef":
+            err = carried - q * scale
+            residuals.append(err)
+    return (torch.stack(means).numpy(),
+            torch.stack(residuals).numpy() if residuals else None)
+
+
+def sharded_pipeline(torch, dev, card):
+    """Phase 15: the sharded half of the paper's pipeline on the card, over
+    one pool of 8 ranks sharing it (gloo). (a) the compressed collectives
+    against rank 0's plain emulation; (b) the sharded LeNet iteration of
+    every strategy against the single-process full-batch iteration, jit
+    against eager, with exact codec launches; (c) a short measured sweep
+    through ``fit_perfmodel.main(["--sharded", ...])``. Returns the kernel
+    launches of every rank summed over (c), the path's run."""
+    import numpy as np
+
+    from repro_torch.configs.lenet5 import LeNet5Config
+    from repro_torch.data import lenet_batch
+    from repro_torch.dist import probes
+    from repro_torch.dist.pool import Pool
+    from repro_torch.launch import fit_perfmodel
+    from repro_torch.models.lenet import init_lenet, lenet_loss
+    from repro_torch.perf import sweep as SW
+    from repro_torch.perf.costmodel import mesh_axes_for
+
+    t_phase = time.perf_counter()
+    with Pool(world=SHARDED_WORLD, device=dev) as pool:
+        print(f"  pool of {pool.world} ranks ({pool.backend}) on {dev} up in "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+        # -- a. the collectives ------------------------------------------------
+        t0 = time.perf_counter()
+        worst = {}
+        for n in (2, 4, 8):
+            for mode in ("none", "bf16", "int8", "int8_ef"):
+                steps = EF_STEPS if mode == "int8_ef" else 1
+                for j, shape in enumerate(COLLECTIVE_SHAPES):
+                    rng = np.random.default_rng(1000 * n + 10 * j + len(mode))
+                    xs = (rng.standard_normal((steps, n, *shape))
+                          * rng.uniform(1e-3, 10.0, size=(steps, n) + (1,) * len(shape))
+                          ).astype(np.float32)
+                    res = pool.run(probes.collective, xs, mode, mesh={"data": n})
+                    want, want_res = _plain_collective(torch, xs, mode)
+                    bit = mode in ("int8", "int8_ef")
+                    tol = 0.0 if bit else n * 2.0 ** -23 * float(np.abs(xs).max())
+                    err = 0.0
+                    for r, out in enumerate(res):
+                        err = max(err, float(np.abs(out["means"] - want).max()))
+                        if bit and not np.array_equal(out["means"], want):
+                            fail(f"compressed_psum_mean {mode} n={n} {shape}: rank {r}'s "
+                                 f"mean is not the plain emulation's bit for bit ({err:.3e})")
+                        if mode == "int8_ef" and not np.array_equal(out["residuals"],
+                                                                    want_res[:, r]):
+                            fail(f"compressed_psum_mean_ef n={n} {shape}: rank {r}'s "
+                                 "residuals are not the plain emulation's bit for bit")
+                        launched = out["launches"]
+                        expect = steps if bit else 0
+                        if (launched["quantize_absmax"], launched["quantize_int8"],
+                                launched["dequantize_int8"]) != (expect, expect, 0):
+                            fail(f"compressed_psum_mean {mode} n={n}: rank {r} launched "
+                                 f"{launched}, expected {expect} absmax + {expect} quantize")
+                    if err > tol:
+                        fail(f"compressed_psum_mean {mode} n={n} {shape}: {err:.3e} > {tol:.3e}")
+                    worst[mode] = max(worst.get(mode, 0.0), err / tol if tol else err)
+        print(f"  collectives over worlds of 2, 4, 8 x {len(COLLECTIVE_SHAPES)} shapes "
+              f"(int8_ef over {EF_STEPS} steps): int8 and int8_ef means and residuals "
+              f"bit for bit; largest none/bf16 error as a share of n*2^-23*max|x|: "
+              f"none {worst['none']:.3f}, bf16 {worst['bf16']:.3f}; one absmax and one "
+              f"quantize launch per int8 call per rank, none for none/bf16; "
+              f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+
+        # -- b. the sharded LeNet iteration at n = 8 ---------------------------
+        # The eager iterations against the full batch run with cuDNN off, on
+        # every rank and in this process: its algorithm for a rank's
+        # sub-batch can differ from the full batch's and is off the fp64
+        # iteration by more than the tolerance (conv1 at 8 images a rank under
+        # fsdp_tp); PyTorch's own convolutions hold the sharding math to fp32
+        # rounding. The compiled iterations then run with cuDNN on, as the
+        # sweep does (compiled with cuDNN off, a graph's stride check of a
+        # convolution's output failed on the card: planned channels-last,
+        # computed contiguous), and are held to the eager ones.
+        configs, eager = [], {}
+        torch.backends.cudnn.enabled = False
+        pool.run(probes.set_cudnn, False, mesh={"data": pool.world})
+        for strategy in SHARDED_STRATEGIES:
+            for comp in ("none", "int8"):
+                t0 = time.perf_counter()
+                cfg = LeNet5Config(strategy=strategy, n_devices=SHARDED_WORLD,
+                                   batch_size=32, optimizer="sgd", compression=comp,
+                                   dropout=0.0)
+                axes = mesh_axes_for(strategy, SHARDED_WORLD)
+                p_cpu = init_lenet(cfg, seed=0, device="cpu")
+                b_cpu = lenet_batch(cfg, seed=0, device="cpu")
+                inputs = ({k: v.numpy() for k, v in p_cpu.items()},
+                          {k: v.numpy() for k, v in b_cpu.items()})
+                res = pool.run(probes.sharded_iteration, cfg, ["eager"], *inputs,
+                               mesh=axes)
+                params = {k: v.to(dev) for k, v in p_cpu.items()}
+                batch = {k: v.to(dev) for k, v in b_cpu.items()}
+                want, want_loss = SW.make_iteration(cfg, "eager")(params, batch, None)
+                # int8 scales are agreed over per-shard grads, whose maxima exceed
+                # the full-batch mean's: bound the ulp by the data shards' maxima
+                data = axes.get("data", 1)
+                per = cfg.batch_size // data
+                shard_max = {k: 0.0 for k in params}
+                for i in range(data):
+                    sub = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
+                    g = torch.func.grad(lenet_loss)(params, sub, cfg, None)
+                    for k in params:
+                        shard_max[k] = max(shard_max[k], g[k].abs().max().item())
+                lr = cfg.learning_rate
+                frac = 0.0
+                expect = 0 if comp == "none" else _codec_calls(strategy, SHARDED_WORLD)
+                g_max = {k: float(np.abs(p_cpu[k].numpy() - want[k].cpu().numpy()).max())
+                         / lr for k in params}
+                for r, out in enumerate(res):
+                    launched = out["eager"]["launches"]
+                    if (launched["quantize_absmax"], launched["quantize_int8"],
+                            launched["dequantize_int8"]) != (expect, expect, 0):
+                        fail(f"sharded {strategy}/{comp} eager: rank {r} launched "
+                             f"{launched}, expected {expect} absmax + {expect} quantize")
+                    if abs(out["eager"]["loss"] - float(want_loss)) > SHARDED_LOSS_TOL:
+                        fail(f"sharded {strategy}/{comp}: rank {r}'s loss "
+                             f"{out['eager']['loss']} vs {float(want_loss)}")
+                    for k in params:
+                        got = out["eager"]["params"][k]
+                        ref = want[k].cpu().numpy()
+                        lim = (2e-5 + (1e-5 * g_max[k] if comp == "none"
+                                       else 0.75 * shard_max[k] / 127.0)) * lr
+                        err = float(np.abs(got - ref).max())
+                        if err > lim:
+                            fail(f"sharded {strategy}/{comp} {k}: rank {r}'s new params "
+                                 f"off the full-batch iteration by {err:.3e} > {lim:.3e}")
+                        frac = max(frac, err / lim)
+                eager[strategy, comp] = res
+                configs.append((strategy, comp, cfg, axes, inputs, shard_max, g_max,
+                                expect))
+                print(f"  sharded {strategy:7s} {comp:4s} mesh {axes}: eager new params "
+                      f"within {frac:.3f} of the tolerance of the full-batch iteration "
+                      f"on every rank; {expect} absmax + {expect} quantize launches per "
+                      f"rank per iteration; {time.perf_counter() - t0:.1f} s; card "
+                      f"{card}", flush=True)
+        torch.backends.cudnn.enabled = True
+        pool.run(probes.set_cudnn, True, mesh={"data": pool.world})
+        for strategy, comp, cfg, axes, inputs, shard_max, g_max, expect in configs:
+            t0 = time.perf_counter()
+            res = pool.run(probes.sharded_iteration, cfg, ["eager", "jit"], *inputs,
+                           mesh=axes)
+            lr = cfg.learning_rate
+            jit_frac, crossed, worst, cudnn = 0.0, 0, 0.0, 0.0
+            for r, (out, ref) in enumerate(zip(res, eager[strategy, comp])):
+                launched = out["jit"]["launches"]
+                if (launched["quantize_absmax"], launched["quantize_int8"],
+                        launched["dequantize_int8"]) != (expect, expect, 0):
+                    fail(f"sharded {strategy}/{comp} jit: rank {r} launched "
+                         f"{launched}, expected {expect} absmax + {expect} quantize")
+                loss_gap = abs(out["jit"]["loss"] - ref["eager"]["loss"])
+                if loss_gap > SHARDED_LOSS_TOL:
+                    fail(f"sharded {strategy}/{comp}: rank {r}'s jit loss off eager "
+                         f"by {loss_gap:.3e} > {SHARDED_LOSS_TOL}")
+                for k, got in out["jit"]["params"].items():
+                    want_k = ref["eager"]["params"][k]
+                    diff = np.abs(got - want_k)
+                    base = (2e-5 + 1e-5 * g_max[k] + SHARDED_CUDNN) * lr
+                    lim = base + (0.0 if comp == "none" else lr * shard_max[k] / 127.0)
+                    if diff.max() > lim:
+                        fail(f"sharded {strategy}/{comp} {k}: rank {r}'s jit params "
+                             f"off eager by {diff.max():.3e} > {lim:.3e}")
+                    over = int((diff > base).sum())
+                    if over > max(1, diff.size // SHARDED_CROSSINGS):
+                        fail(f"sharded {strategy}/{comp} {k}: rank {r}'s jit params "
+                             f"off eager by more than {base:.3e} at {over} of "
+                             f"{diff.size} values")
+                    jit_frac = max(jit_frac, float(diff.max()) / lim)
+                    worst = max(worst, float(diff.max()) / lr)
+                    crossed += over
+                    cudnn = max(cudnn, float(np.abs(out["eager"]["params"][k]
+                                                    - want_k).max()) / lr)
+            print(f"  sharded {strategy:7s} {comp:4s} jit (cuDNN on) vs eager (off): "
+                  f"largest |new param difference| / lr {worst:.3e}, within "
+                  f"{jit_frac:.3f} of its tolerance, {crossed} values past the none "
+                  f"tolerance on all ranks (eager with cuDNN on vs off: "
+                  f"{cudnn:.3e}); {expect} absmax + {expect} quantize launches per "
+                  f"rank from the compiled graph; {time.perf_counter() - t0:.1f} s; "
+                  f"card {card}", flush=True)
+
+        # -- c. a measured sweep through the entry point ------------------------
+        pool.run(probes.reset_launches, mesh={"data": pool.world})
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "rows.json")
+            report = fit_perfmodel.main(["--sharded", "--mode", "jit", "--trials",
+                                         str(SHARDED_SWEEP_TRIALS), "--seed",
+                                         str(SHARDED_SWEEP_SEED), "--rows-out", path],
+                                        pool=pool)
+            with open(path) as f:
+                rows = json.load(f)
+        per_rank = pool.run(probes.read_launches, mesh={"data": pool.world})
+    launches = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    ok = [r for r in rows if "error" not in r]
+    errors = [r["error"] for r in rows if "error" in r]
+    if errors or len(ok) != SHARDED_SWEEP_TRIALS:
+        fail(f"sharded sweep: {len(ok)} rows ok of {len(rows)}, errors {errors[:2]}")
+    bad = [r for r in ok if not (r["t_measured_sharded"] or 0) > 0
+           or r["sharded_skip"] is not None]
+    if bad:
+        fail(f"sharded sweep: {len(bad)} ok rows without a measured iteration: "
+             f"{[(r['t_measured_sharded'], r['sharded_skip']) for r in bad]}")
+    if set(report["sharded_fits"]) != {"measured", "simulated (default link)",
+                                       "simulated (calibrated)"}:
+        fail(f"sharded sweep: fits {sorted(report['sharded_fits'])}")
+    codec = sum(f["n_devices"] * SHARDED_TRIAL_ITERS
+                * _codec_calls(f["strategy"], f["n_devices"])
+                for f in (r["features"] for r in ok) if f["compression"] == "int8")
+    if not codec or (launches["quantize_absmax"], launches["quantize_int8"],
+                     launches["dequantize_int8"]) != (codec, codec, 0):
+        fail(f"sharded sweep: launches over every rank {launches}, expected "
+             f"{codec} absmax + {codec} quantize (and more than none)")
+    for r in ok:
+        f_ = r["features"]
+        print(f"  row {f_['strategy']:7s} n={f_['n_devices']} {f_['compression']:4s} "
+              f"batch {f_['batch_size']:3d}: measured {r['t_measured_sharded']:.3f} ms, "
+              f"simulated {r['t_simulated']:.3f} ms (compute {r['measured_ms']:.3f} + "
+              f"comm {r['comm_ms']:.3f}); card {card}", flush=True)
+    print(f"  sharded sweep: {len(ok)} rows ok, {len(errors)} error"
+          f"{' ' + str(errors[:2]) if errors else ''}, {report['measured_rows']} measured; "
+          f"residual MAE {report['residual_mae_ms']['default']:.3f} ms (default link) -> "
+          f"{report['residual_mae_ms']['calibrated']:.3f} ms (calibrated); test MAPE "
+          + ", ".join(f"{k} {v['test_mape']:.4f}" for k, v in report["sharded_fits"].items())
+          + f"; sweep {report['sweep_s']:.1f} s; launches over every rank {launches}; "
+          f"card {card}", flush=True)
+    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -1422,9 +1732,18 @@ def main() -> None:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
 
+    # ---- 15. sharded pipeline -----------------------------------------------
+    phase("sharded pipeline on the card: a world of 8 ranks over gloo")
+    try:
+        sharded_counts = sharded_pipeline(torch, dev, card)
+    finally:
+        from torch._inductor.async_compile import shutdown_compile_workers
+        shutdown_compile_workers()
+
     paths = {"serve": serve_counts, "train": train_counts,
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
-             "mamba2_prefill_check": prefill_counts}
+             "mamba2_prefill_check": prefill_counts,
+             "sharded_pipeline": sharded_counts}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}

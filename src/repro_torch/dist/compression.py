@@ -1,6 +1,5 @@
 """Gradient wire-format compression: bf16, int8, int8 + error feedback
-(``repro.dist.compression``, the local codec; the collectives come with the
-distributed slice).
+(``repro.dist.compression``).
 
   * ``quantize_int8`` — symmetric max-abs int8 with a single fp32 scale;
     round-to-nearest, so |x - q·s| <= s/2 elementwise. On the card it runs
@@ -9,8 +8,23 @@ distributed slice).
   * ``compress_decompress`` — one gradient through the wire format and
     back, with optional error feedback: the residual of step t is added to
     the gradient of step t+1.
+  * ``compressed_psum_mean`` — a shared-scale all-reduce-mean over a
+    ``torch.distributed`` process group in the wire format: the scale is
+    agreed with a MAX all-reduce of the local max-abs, so every rank
+    quantizes onto the same grid and the sum of the integers is exact.
+  * ``compressed_psum_mean_ef`` — the same collective with per-rank error
+    feedback: the residual stays on the rank that incurred it.
   * ``compress_tree`` / ``init_error_feedback`` — the train step's tree
     plumbing.
+
+The collectives are ``torch.distributed._functional_collectives`` calls
+(``dist.sharding.all_reduce``), so ``torch.compile`` traces them into its
+graph, and the int8 codec inside them goes through ``kernels.ops`` (the
+absmax and quantize kernels on the card).
+As in the reference, the integers are summed as fp32 values, which is what
+the reference puts on its wire: sums of at most 8 values of magnitude ≤ 127
+are exact integers, so the mean is bit-identical whatever the reduction
+order. A group of ``None`` is a single rank: the codec runs, no collective.
 
 One scale per reference leaf. The reference stacks the layers of a segment
 into one ``[n_layers, ...]`` leaf and ``compress_tree`` quantizes each leaf
@@ -27,7 +41,9 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed import ProcessGroup
 
+from repro_torch.dist.sharding import all_reduce
 from repro_torch.kernels import ops
 from repro_torch.tree import (reference_leaves, tree_leaves, tree_map,
                               tree_unflatten)
@@ -81,6 +97,58 @@ def compress_decompress(g: torch.Tensor, mode: str,
     """
     ds, es = compress_leaf([g], mode, None if err is None else [err])
     return ds[0], None if es is None else es[0]
+
+
+def group_size(group: Optional[ProcessGroup]) -> int:
+    return 1 if group is None else group.size()
+
+
+def _mean(summed: torch.Tensor, n: int) -> torch.Tensor:
+    # a tensor divide, as the reference's ``/ psum(1.0)``; exact for n a
+    # power of two, which every mesh axis of the sweep is
+    return summed / torch.full((), float(n), device=summed.device)
+
+
+def compressed_psum_mean(x: torch.Tensor, group: Optional[ProcessGroup],
+                         mode: str = "int8") -> torch.Tensor:
+    """All-reduce-mean of ``x`` over ``group`` in the wire format.
+
+    int8 agrees the quantization grid across ranks with a MAX all-reduce
+    of the local max-abs, so the integer sum is exact and only the shared
+    scale carries rounding. int8_ef is refused: error feedback needs the
+    residual threaded between steps (``compressed_psum_mean_ef``)."""
+    if mode == "int8_ef":
+        raise ValueError("int8_ef needs a residual buffer — use "
+                         "compressed_psum_mean_ef(x, group, err)")
+    if mode not in ("none", "bf16", "int8"):
+        raise ValueError(f"unknown compression mode {mode!r}")
+    n = group_size(group)
+    xf = x.float()
+    if mode == "none":
+        return _mean(all_reduce(xf, "sum", group), n).to(x.dtype)
+    if mode == "bf16":
+        summed = all_reduce(xf.to(torch.bfloat16).float(), "sum", group)
+        return _mean(summed, n).to(x.dtype)
+    q, scale = ops.quantize_with(xf, all_reduce(ops.absmax(xf), "max", group))
+    summed = all_reduce(q.float(), "sum", group) * scale
+    return _mean(summed, n).to(x.dtype)
+
+
+def compressed_psum_mean_ef(x: torch.Tensor, group: Optional[ProcessGroup],
+                            err: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared-scale int8 all-reduce-mean with per-rank error feedback.
+
+    ``carried = x + err`` is quantized on the MAX-agreed grid and
+    ``new_err = carried − q·scale`` stays on this rank; only the integers
+    and the shared scale cross the wire. Returns ``(mean, new_err)``."""
+    n = group_size(group)
+    carried = x.float() + err.float()
+    q, scale = ops.quantize_with(carried,
+                                 all_reduce(ops.absmax(carried), "max", group))
+    qf = q.float()
+    summed = all_reduce(qf, "sum", group) * scale
+    return _mean(summed, n).to(x.dtype), carried - qf * scale
 
 
 def init_error_feedback(params):

@@ -47,6 +47,30 @@ def quantize_int8_shared(xs: Sequence[torch.Tensor]
     return [q for q, _ in out], out[0][1]
 
 
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| as a one-element fp32 tensor on x's device: the local scale
+    that a compressed all-reduce agrees on with a MAX all-reduce
+    (``dist.compression.compressed_psum_mean``). On the card, one absmax
+    launch into a fresh device scalar, over a contiguous copy of a strided
+    x (cuDNN may hand back a convolution's weight grad channels-last, and on
+    some ranks only)."""
+    if x.device.type == "cpu":
+        return Q.absmax_plain(x).reshape(1)
+    acc = Q.new_absmax(x.device)
+    Q.absmax_into(x.contiguous(), acc)
+    return acc
+
+
+def quantize_with(x: torch.Tensor, absmax: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 values, 0-d fp32 scale = absmax / 127) of x against a given
+    max-abs, such as the MAX all-reduce of every rank's ``absmax``. On the
+    card, one quantize launch (of a contiguous copy of a strided x)."""
+    if x.device.type == "cpu":
+        return Q.quantize_plain(x, absmax)
+    return Q.quantize_with(x.contiguous(), absmax)
+
+
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, fp32 scale) of one tensor
     (``repro.dist.compression.quantize_int8``)."""

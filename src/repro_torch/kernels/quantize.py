@@ -18,6 +18,12 @@ leaf (``dist.compression.compress_tree``).
 Wrappers launch on PyTorch's current stream, count their launches and raise
 for tensors that are not on a CUDA device; the ``*_plain`` functions are
 the same arithmetic in PyTorch, which ``kernels.ops`` takes for CPU tensors.
+``absmax_into`` and ``quantize_with`` are registered as ``torch.library``
+custom ops (``repro_torch::quantize_absmax``, ``repro_torch::quantize_int8``)
+with fake versions for tracing, so a ``torch.compile(fullgraph=True)`` graph,
+such as the sharded LeNet iteration's (``perf.sweep``), keeps them as extern
+calls to these wrappers: the checks, the launch and the count run on every
+call of the compiled code too.
 """
 from __future__ import annotations
 
@@ -137,6 +143,7 @@ def new_absmax(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.float32, device=device)
 
 
+@torch.library.custom_op("repro_torch::quantize_absmax", mutates_args=("absmax",))
 def absmax_into(x: torch.Tensor, absmax: torch.Tensor) -> None:
     """absmax ← max(absmax, max|x|), on the device (fp32 or bf16 x)."""
     global ABSMAX_LAUNCHES
@@ -151,6 +158,12 @@ def absmax_into(x: torch.Tensor, absmax: torch.Tensor) -> None:
     ABSMAX_LAUNCHES += 1
 
 
+@absmax_into.register_fake
+def _(x, absmax):
+    return None
+
+
+@torch.library.custom_op("repro_torch::quantize_int8", mutates_args=())
 def quantize_with(x: torch.Tensor, absmax: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 q of x's shape, 0-d fp32 scale = absmax / 127) against the
@@ -169,6 +182,12 @@ def quantize_with(x: torch.Tensor, absmax: torch.Tensor
     _raise_on(lib, err, "quantize_int8")
     QUANTIZE_LAUNCHES += 1
     return q, scale
+
+
+@quantize_with.register_fake
+def _(x, absmax):
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty((), dtype=torch.float32, device=x.device))
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

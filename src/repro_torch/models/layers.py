@@ -1,5 +1,6 @@
 """Layer primitives over plain dicts of tensors (the serving subset of
-``repro.models.layers``).
+``repro.models.layers``, the LeNet activations, and the Megatron ``tp_f`` /
+``tp_g`` pair with the ``LocalDim`` marker of its manual tensor-parallel path).
 
 A dense layer is ``{"weight": [d_out, d_in], "bias": [d_out]}``, the
 ``F.linear`` layout; ``models.convert`` maps the reference's ``[d_in, d_out]``
@@ -9,10 +10,14 @@ the reference's scales (its ``jax.random`` bits cannot be reproduced).
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.distributed import ProcessGroup
+
+from repro_torch.dist.sharding import all_reduce
 
 Params = Dict[str, torch.Tensor]
 
@@ -127,3 +132,66 @@ def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     up = dense(params["up"], x)
     h = F.silu(dense(params["gate"], x)) * up
     return dense(params["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Manual tensor parallelism (the sharded LeNet iteration's fc split)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LocalDim:
+    """Axes-entry marker: this dimension holds a 1/``size`` *local* slice,
+    split over the mesh axis ``axis`` (``logical`` is the dim's logical
+    name). ``perf.sweep.lenet_partition_specs`` marks the split fc pair with
+    it, one entry per dim of the port's layout."""
+    logical: str
+    axis: str
+    size: int
+
+
+class _TpF(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        # no_grad: the collective's own autograd formula is not one that
+        # torch.func transforms can take, and nothing differentiates this
+        with torch.no_grad():
+            return all_reduce(g, "sum", ctx.group), None
+
+
+class _TpG(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_f(group: ProcessGroup, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``f``: identity forward, all-reduce SUM backward over
+    ``group``. It enters a partitioned sub-path, so the backward completes
+    the partial input cotangents each model rank produces."""
+    return _TpF.apply(x, group)
+
+
+def tp_g(group: ProcessGroup, x: torch.Tensor) -> torch.Tensor:
+    """Megatron's ``g``: all-reduce SUM forward over ``group``, identity
+    backward. It closes a row-parallel product. A differentiable all-reduce
+    (``torch.distributed.nn.functional.all_reduce``) would be wrong here:
+    its backward all-reduces the already replicated output cotangent and so
+    multiplies it by the ring size; the adjoint of "sum the partials" hands
+    each rank the cotangent unchanged."""
+    return _TpG.apply(x, group)

@@ -11,6 +11,11 @@ XLA's ``SAME`` padding is ``⌈n/s⌉`` outputs with ``max((⌈n/s⌉−1)·s + 
 asymmetric, which torch's ``padding="same"`` does not do, so ``_conv`` pads
 with ``F.pad`` and convolves VALID. Pooling is max over non-overlapping
 windows (window = stride = ``_pool_window``), VALID.
+
+The sharded iteration (``perf.sweep.make_sharded_iteration``) may split the
+fc pair Megatron-style over a model axis of m ranks: it passes that axis's
+process group as ``tp``, fc1 holds rows ``[120/m, flat]`` of this rank and
+fc2 columns ``[84, 120/m]`` (the reference's fc1 columns and fc2 rows).
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.lenet5 import DATASET_SHAPES, LeNet5Config, N_CLASSES
-from repro_torch.models.layers import Params, activation_fn, normal_param
+from repro_torch.models.layers import (Params, activation_fn, normal_param,
+                                      tp_f, tp_g)
 
 HIDDEN = (120, 84)     # fc1 and fc2 widths
 
@@ -101,37 +107,53 @@ def _pool(x: torch.Tensor, p: int) -> torch.Tensor:
 
 
 def lenet_forward(params: Params, images: torch.Tensor, cfg: LeNet5Config, *,
-                  train: bool = False,
-                  rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  train: bool = False, rng: Optional[torch.Tensor] = None,
+                  tp=None) -> torch.Tensor:
     """images [B,C,H,W] -> logits [B,10].
 
     ``rng`` stands for the reference's dropout key: uniform draws in [0, 1)
     of fc1's output shape ``[B, 120]`` (``dropout_noise``), made outside so
     a compiled iteration takes them as an input. A unit is kept where its
-    draw is below ``1 - dropout``."""
+    draw is below ``1 - dropout``.
+
+    ``tp``, when given, is the model axis's process group of a split fc
+    pair: the flattened features enter fc1's row slice through ``tp_f``
+    (so the backward completes their cotangent) and fc2's partial product
+    is closed by ``tp_g`` before the activation. Under dropout each rank's
+    draws cover its own hidden slice (``rng`` is ``[B, 120/m]``)."""
     act = activation_fn(cfg.activation)
     x = act(_conv(images, params["conv1"], cfg.stride, cfg.padding))
     x = _pool(x, cfg.pool_size)
     x = act(_conv(x, params["conv2"], cfg.stride, cfg.padding))
     x = _pool(x, cfg.pool_size)
     x = x.flatten(1)
+    if tp is not None:
+        x = tp_f(tp, x)
     x = act(F.linear(x, params["fc1"]))
     if train and cfg.dropout > 0:
         keep = rng < 1.0 - cfg.dropout
         x = torch.where(keep, x / (1.0 - cfg.dropout), 0.0)
-    x = act(F.linear(x, params["fc2"]))
+    h = F.linear(x, params["fc2"])
+    if tp is not None:
+        h = tp_g(tp, h)
+    x = act(h)
     return F.linear(x, params["out"])
 
 
-def dropout_noise(gen: torch.Generator, batch: int) -> torch.Tensor:
-    """Uniform [batch, 120] draws on the generator's device: the port's
-    dropout key for ``lenet_forward``/``lenet_loss``."""
-    return torch.rand((batch, HIDDEN[0]), generator=gen, device=gen.device)
+def dropout_noise(gen: torch.Generator, batch: int,
+                  width: int = HIDDEN[0]) -> torch.Tensor:
+    """Uniform [batch, width] draws on the generator's device: the port's
+    dropout key for ``lenet_forward``/``lenet_loss`` (width 120, or 120/m
+    on a split fc pair)."""
+    return torch.rand((batch, width), generator=gen, device=gen.device)
 
 
 def lenet_loss(params: Params, batch: Dict[str, torch.Tensor],
-               cfg: LeNet5Config, rng: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean cross-entropy of the training forward (dropout on)."""
-    logits = lenet_forward(params, batch["images"], cfg, train=True, rng=rng)
+               cfg: LeNet5Config, rng: Optional[torch.Tensor],
+               tp=None) -> torch.Tensor:
+    """Mean cross-entropy of the training forward (dropout on); ``tp`` as
+    in ``lenet_forward``."""
+    logits = lenet_forward(params, batch["images"], cfg, train=True, rng=rng,
+                           tp=tp)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(1, batch["labels"][:, None]).mean()

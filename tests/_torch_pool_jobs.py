@@ -1,0 +1,51 @@
+"""Pool jobs for the port's tests (``repro_torch.dist.pool.Pool.run``).
+
+A spawned rank imports a job by its module path, so the jobs the tests
+need beyond ``repro_torch.dist.probes`` live here, in a module that imports
+torch and the port only: never JAX, never ``repro``.
+"""
+import sys
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import tp_f, tp_g
+
+
+def imported_roots(ctx):
+    """The roots of this rank's imported modules among jax, jaxlib, repro."""
+    return sorted({m.split(".")[0] for m in sys.modules}
+                  & {"jax", "jaxlib", "repro"})
+
+
+def split_mlp_loss(x, w1, w2, group=None):
+    """sum(tanh(tanh(x·w1ᵀ)·w2ᵀ)²), with w1's rows and w2's columns split
+    over ``group`` (Megatron's f/g pair) when it is given."""
+    if group is not None:
+        x = tp_f(group, x)
+    h = F.linear(torch.tanh(F.linear(x, w1)), w2)
+    if group is not None:
+        h = tp_g(group, h)
+    return torch.tanh(h).square().sum()
+
+
+def split_mlp_grads(ctx, x, w1, w2):
+    """Grads of ``split_mlp_loss`` on this model rank's slice of w1's rows
+    and w2's columns, through ``torch.func.grad``: (gx, gw1 slice, gw2
+    slice, loss)."""
+    mesh = ctx.mesh
+    m, r = mesh.shape["model"], mesh.index("model")
+    rows = slice(r * w1.shape[0] // m, (r + 1) * w1.shape[0] // m)
+    args = (torch.from_numpy(x), torch.from_numpy(w1[rows]),
+            torch.from_numpy(np.ascontiguousarray(w2[:, rows])))
+    grads, loss = torch.func.grad_and_value(split_mlp_loss, argnums=(0, 1, 2))(
+        *args, mesh.group("model"))
+    return [g.numpy() for g in grads] + [float(loss)]
+
+
+def raise_on(ctx, rank):
+    """Raise on ``rank``; return the rank elsewhere."""
+    if ctx.rank == rank:
+        raise ValueError(f"job failed on purpose on rank {rank}")
+    return ctx.rank

@@ -325,3 +325,24 @@ def test_fit_perfmodel_cpu_report(tmp_path, capsys):
     rows = json.loads(rows_out.read_text())
     assert len(rows) == 12 and all(r["mode"] == "eager" for r in rows)
     assert _port_launches() == before          # the pipeline runs no kernel
+
+
+def test_pool_ranks_import_neither_jax_nor_repro():
+    """A spawned rank of the port's pool imports torch and the port only,
+    though the caller (this test process) has JAX loaded; a rank that raises
+    fails the job with its rank named, and the pool goes on."""
+    import _torch_pool_jobs as jobs
+    from repro_torch.dist.pool import Pool, RankError
+    with Pool(world=2, device="cpu") as pool:
+        roots = pool.run(jobs.imported_roots, mesh={"data": 2})
+        with pytest.raises(RankError, match="rank 1: ValueError: job failed"):
+            pool.run(jobs.raise_on, 1, mesh={"data": 2})
+        assert pool.run(jobs.raise_on, 5, mesh={"data": 2}) == [0, 1]
+    assert "jax" in roots[0] and roots[1] == []
+
+
+def test_fit_perfmodel_sharded_needs_a_compiled_mode(capsys):
+    from repro_torch.launch import fit_perfmodel
+    with pytest.raises(SystemExit):
+        fit_perfmodel.main(["--sharded", "--mode", "eager", "--device", "cpu"])
+    assert "compiled iterations" in capsys.readouterr().err

@@ -106,12 +106,22 @@ def test_rows_fit_under_either_package(sweeps):
     assert get_spec("lenet").spec == LENET_SPEC
 
 
-def test_sharded_probe_is_not_ported():
-    cfg = TS.sample_config(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        TS.measure_trial(cfg, "jit", sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        TS.run_sweep(1, sharded=True, device="cpu")
+def test_sharded_probe_measures_on_a_pool():
+    """measure_trial(sharded=True) on a CPU pool of 2 measures the sharded
+    iteration of a compiled trial at n = 2; an eager trial records
+    SKIP_EAGER and a trial above the pool SKIP_POOL."""
+    from repro_torch.dist.pool import Pool
+    cfg = dataclasses.replace(TS.sample_config(np.random.default_rng(0)),
+                              n_devices=2, batch_size=16)
+    with Pool(world=2, device="cpu") as pool:
+        row = TS.measure_trial(cfg, "jit", sharded=True, pool=pool, device="cpu")
+        big = TS.measure_trial(dataclasses.replace(cfg, n_devices=4), "eager",
+                               sharded=True, pool=pool, device="cpu")
+    assert row.t_measured_sharded > 0 and row.sharded_skip is None
+    assert row.t_simulated == row.measured_ms + row.comm_ms
+    assert (big.t_measured_sharded, big.sharded_skip) == (None, TS.SKIP_EAGER)
+    assert TS.measure_sharded_trial(dataclasses.replace(cfg, n_devices=4), "jit",
+                                    pool=pool) == (None, TS.SKIP_POOL)
 
 
 def test_unknown_mode_raises():
