@@ -15,9 +15,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    training path's shape and cases aimed at each design (the tile kernel's
    ragged tiles, windows, ring positions and wholly masked first rows; the
    split-KV kernel's half-empty ring, ragged and empty last splits and a
-   wholly masked row over 4096 slots), each call gated on the design it
-   must take; and the autograd Function's gradients against autograd
-   through the plain version;
+   wholly masked row over 4096 slots), gemma2-2b's shapes (head_dim 256 on
+   the CUDA-core design: its training shape and decode with window 4096 and
+   softcap 50, a prefill where the window bites, a 4096-slot ring holding
+   positions past the window) and whisper-tiny's (its 1500-frame non-causal
+   encoder, the cross-attention over it at prefill and decode), each call
+   gated on the design it must take; and the autograd Function's gradients
+   against autograd through the plain version;
 4. the int8 codec kernels against their plain versions, bit for bit: the
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
@@ -36,13 +40,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 7. decode-loop logits against a prefill forward of the same prompt, at
    full width: asserted in fp32, reported for the served bf16 model,
    whose decode steps are then profiled (device busy time, idle share,
-   top kernels);
+   top kernels); phases 6-7 are ``lm_serve``;
 8. full-width smollm-360m trained through ``repro_torch.launch.train.main``
    (batch 8, seq 512, 8 steps of adamw with int8_ef compression), with
    every kernel's launches counted over that run, flash attention's by
-   design (the tile kernel only); the losses must be finite and fall;
+   design (the tile kernel only); the losses must be finite and fall; then
+   the same step, which updates its state in place, profiled as in phase 7
+   (``lm_train``);
 9. ``compress_tree`` on the full-width grads of one backward against its
-   plain version, bit for bit; then a train step profiled as in phase 7;
+   plain version, bit for bit;
 10. full-width mamba2-370m served as in phase 6: decode is the recurrence,
     so no SSD launch;
 11. mamba2-370m's decode loop against ``MD.prefill`` (48 SSD launches: the
@@ -60,7 +66,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     4096 slots), prefill and the training shape, causal (``AttnSpec()``'s
     default) and not, each against SDPA in its own mask form (none, or
     ``is_causal``) and given the mask as a boolean tensor; then the tile
-    kernel's fixed cost and cost per KV tile, full and masked. The SSD scan's
+    kernel's fixed cost and cost per KV tile, full and masked; flash
+    attention at gemma2-2b's training and decode shapes (yardsticks:
+    ``flex_attention`` compiled with its softcap and window, and SDPA
+    without the softcap, labelled so) and at
+    whisper-tiny's encoder and cross-attention decode (SDPA). The SSD scan's
     two designs at the training and prefill shapes on the same inputs, and
     the tensor-core kernel's fixed cost and cost per chunk;
 14. the paper's pipeline (``paper_pipeline``): the first LeNet-5 iteration
@@ -89,7 +99,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     measured
     sweep through ``fit_perfmodel.main(["--sharded", ...])``: every row ok
     with ``t_measured_sharded`` > 0, the link calibration and the three
-    fits run, and the codec kernels launched on the ranks.
+    fits run, and the codec kernels launched on the ranks;
+16. full-width gemma2-2b (``lm_serve``, ``lm_train``): served through
+    ``launch.serve.main`` as in phase 6 (1664 CUDA-core flash launches); its
+    decode loop against a prefill forward, asserted in fp32, its bf16 decode
+    steps profiled; trained through ``launch.train.main`` (batch 8, seq 512,
+    8 steps of adamw with int8_ef under remat "dots": every block's
+    attention in the forward and again in the backward's recompute, 416
+    launches), losses finite and falling, the peak memory printed and under
+    the card's; a train step profiled;
+17. full-width whisper-tiny, the same sequence: its encoder runs once per
+    request over the 1500 stub frames of ``make_batch_for``, then each
+    decode step attends to its cache and, non-causally, to the encoder's
+    cross K/V (split-KV with a combine).
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -108,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import unittest.mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -753,6 +776,250 @@ def sharded_pipeline(torch, dev, card):
     return launches
 
 
+# Phases 16 and 17: the local/global pair and the encoder-decoder kinds at
+# full width, each served, held decode-against-prefill and trained under
+# remat "dots" (the dense products' outputs kept, the rest recomputed, so
+# every block's attention runs twice a step).
+LG_ARCH = "gemma2-2b"          # lg_pair, head_dim 256, softcaps 50 and 30
+ENCDEC_ARCH = "whisper-tiny"   # enc_attn / dec_attn over 1500 stub frames
+LM_REMAT = "dots"
+# adamw's peak lr in the 8-step trainings (no warmup at 8 steps). gemma2's
+# 2304-wide layers move by about d_model·lr of their output scale on Adam's
+# first, sign-like step: at the default 3e-4 its loss rose from 12.81 to
+# 16.11 on step 2 before it fell; at 3e-5 it falls on every step.
+LG_LR, ENCDEC_LR = 3e-5, 3e-4
+
+
+def flash_designs(FA, q_shape, kv_shape, dtype):
+    """Kernel launches by design of one flash call (``FA.plan``)."""
+    p = FA.plan(q_shape, kv_shape, dtype, dtype, dtype)
+    return {p.variant: 1, **({"split_kv_combine": 1} if p.n_splits > 1 else {})}
+
+
+def _add(acc, launches, times=1):
+    for k, n in launches.items():
+        acc[k] = acc.get(k, 0) + n * times
+    return acc
+
+
+def _lm_setup(arch):
+    """(config, head_dim triple, encoder frames T, attention calls of one
+    decoder pass: self, plus whisper's cross)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    encdec = full.is_encoder_decoder
+    return (full, (full.n_heads, full.n_kv_heads, full.get_head_dim()),
+            full.encoder_seq_len, full.n_layers * (2 if encdec else 1))
+
+
+def lm_serve(torch, dev, card, arch, env, prefix):
+    """An LM at full width, served: (a) through ``launch.serve.main`` with
+    every kernel's launches counted, flash attention's by design; (b) the
+    decode loop against a prefill forward (an encoder-decoder encodes its
+    frames once for both), asserted in fp32 and reported in bf16, whose
+    decode steps are then profiled. Returns ({path: kernel counts}, {path:
+    flash launches by design}), each path named ``prefix`` + serve or
+    prefill_check_<dtype>."""
+    import dataclasses
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MD
+
+    full, (hq, hkv, hd), T, per_pass = _lm_setup(arch)
+    encdec = full.is_encoder_decoder
+    cap = PROMPT + GEN
+    bf16 = torch.bfloat16
+    counts, designs = {}, {}
+
+    def decoder_designs(Sq, Skv, dtype, times=1):
+        # every self-attention cache holds cap slots here (gemma2's local
+        # ring is min(cap, window)); whisper's cross-attention reads T
+        out = _add({}, flash_designs(FA, (BATCH, Sq, hq, hd),
+                                     (BATCH, Skv, hkv, hd), dtype), full.n_layers * times)
+        if encdec:
+            _add(out, flash_designs(FA, (BATCH, Sq, hq, hd), (BATCH, T, hkv, hd),
+                                    dtype), full.n_layers * times)
+        return out
+
+    def encoder_designs(dtype):
+        return _add({}, flash_designs(FA, (BATCH, T, hq, hd), (BATCH, T, hkv, hd),
+                                      dtype), full.n_encoder_layers) if encdec else {}
+
+    # ---- (a) serve -----------------------------------------------------------
+    phase(f"serve {arch} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
+    torch.cuda.reset_peak_memory_stats()
+    env.reset_counts()
+    served = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+                         str(PROMPT), "--gen", str(GEN), "--device", "cuda"])
+    got, got_designs = env.read_counts(), env.read_variants()
+    want = {k: 0 for k in got}
+    want["flash_attention"] = cap * per_pass + (full.n_encoder_layers if encdec else 0)
+    rep = served.report
+    print(f"  launches {got} (expected {want}); prefill_s {rep['prefill_s']} decode_s "
+          f"{rep['decode_s']} decode_tok_per_s {rep['decode_tok_per_s']} encode_s "
+          f"{rep.get('encode_s')} peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+          f"card {card}", flush=True)
+    if got != want:
+        fail(f"{arch} serve launched the kernels {got}, expected {want}")
+    env.gate_variants(f"{arch} serve", got_designs,
+                      **_add(encoder_designs(bf16), decoder_designs(1, cap, bf16), cap))
+    if not torch.isfinite(served.logits.float()).all():
+        fail(f"{arch} serve produced non-finite logits")
+    if served.tokens.shape != (BATCH, GEN) or not (
+            (served.tokens >= 0) & (served.tokens < full.vocab_size)).all():
+        fail(f"{arch} serve tokens out of range or shape {tuple(served.tokens.shape)}")
+    counts[f"{prefix}serve"], designs[f"{prefix}serve"] = got, got_designs
+    del served
+
+    # ---- (b) decode loop against prefill -------------------------------------
+    # fp32 weights, activations and caches hold the decode path (kernel at
+    # Sq=1 over the cache) to the prefill path (kernel at Sq=32); the logits
+    # are bf16 either way (logits_fn), so the bf16 tolerance applies. The
+    # served bf16 model is run the same way and its difference printed: its
+    # layers of bf16 rounding, in GEMV and GEMM orders, move the logits by
+    # several bf16 ulps, so it is reported, not asserted.
+    phase(f"{arch} decode loop vs prefill forward at full width")
+    batch = make_batch_for(full, BATCH, PROMPT)
+    prompt = batch["tokens"].to(dev)
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
+        dtype = MD.dtype_of(cfg)
+        with torch.inference_mode():
+            params = MD.init_model(cfg, seed=0, device=dev)
+            enc_kv = MD.encode(params, cfg, batch["frames"].to(dev)) if encdec else None
+            caches = MD.init_decode_caches(cfg, BATCH, cap, dtype=dtype, device=dev)
+            for pos in range(PROMPT):
+                dec, caches = MD.decode_step(params, cfg, caches, prompt[:, pos:pos + 1],
+                                             pos, enc_kv=enc_kv)
+            torch.cuda.synchronize()
+            env.reset_counts()
+            pre, _ = MD.prefill(params, cfg, {"tokens": prompt}, enc_kv=enc_kv)
+            torch.cuda.synchronize()
+            pre_counts, pre_designs = env.read_counts(), env.read_variants()
+        want = {k: 0 for k in pre_counts}
+        want["flash_attention"] = per_pass
+        if pre_counts != want:
+            fail(f"{arch} {dname} prefill launched the kernels {pre_counts}, expected {want}")
+        env.gate_variants(f"{arch} {dname} prefill", pre_designs,
+                          **decoder_designs(PROMPT, PROMPT, dtype))
+        counts[f"{prefix}prefill_check_{dname}"] = pre_counts
+        designs[f"{prefix}prefill_check_{dname}"] = pre_designs
+        err = (dec.float() - pre.float()).abs().max().item()
+        ok = torch.allclose(dec.float(), pre.float(), atol=TOL["bfloat16"],
+                            rtol=TOL["bfloat16"])
+        agree = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
+        verdict = ("ok" if ok else "FAIL") if dname == "float32" else "reported"
+        print(f"  {dname:8s} last-position logits max_abs_err={err:.3e} (max |logit| "
+              f"{pre.float().abs().max().item():.3f}) tol={TOL['bfloat16']:g} argmax "
+              f"agreement {agree:.2f} {verdict}", flush=True)
+        if dname == "float32" and not ok:
+            fail(f"{arch} decode logits disagree with prefill: max_abs_err={err}")
+        if dname == "bfloat16":
+            tok, at = dec.argmax(-1)[:, None], [PROMPT]
+
+            def decode_one():
+                nonlocal caches
+                _, caches = MD.decode_step(params, cfg, caches, tok, at[0], enc_kv=enc_kv)
+                at[0] += 1
+
+            with torch.inference_mode():
+                profile_steps(torch, decode_one, 4, f"{arch} decode step at full width, "
+                              f"bf16, batch {BATCH}", card)
+        del params, caches, enc_kv, dec, pre
+        torch.cuda.empty_cache()
+    return counts, designs
+
+
+def lm_train(torch, dev, card, arch, env, prefix, lr, remat):
+    """An LM at full width, trained: (c) through ``launch.train.main`` (8
+    steps of adamw at ``lr`` with int8_ef under ``remat``) with every
+    kernel's launches counted, flash attention's by design, losses finite
+    and falling, the peak memory under the card's; (d) one train step of
+    the same kind profiled. Returns ({path: kernel counts}, {path: flash
+    launches by design}), the path named ``prefix`` + train."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import TrainConfig, reduced
+    from repro_torch.data import make_batch_for
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.models import model as MD
+    from repro_torch.train import step as TS
+    from repro_torch.tree import reference_leaves
+
+    full, (hq, hkv, hd), _, per_pass = _lm_setup(arch)
+
+    # ---- (c) train ------------------------------------------------------------
+    phase(f"train {arch} at full width (batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
+          f"{TRAIN_STEPS} steps, adamw lr {lr:g}, int8_ef, remat {remat})")
+    torch.cuda.reset_peak_memory_stats()
+    env.reset_counts()
+    trained = train.main(["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
+                          str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--optimizer",
+                          "adamw", "--lr", str(lr), "--compression", "int8_ef",
+                          "--remat", remat, "--device", "cuda", "--log-every", "1"])
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    got, got_designs = env.read_counts(), env.read_variants()
+    # Every block's attention runs once in the forward (its backward is the
+    # plain version's), and again in the backward's recompute under "full"
+    # or "dots"; whisper's training loss runs no encoder (the reference's
+    # hands the decoder no cross K/V). The codec: one launch of each kernel
+    # per parameter tensor per step, the tensors grouped into the
+    # reference's leaves (the tree from a narrow model of the same depth).
+    passes = 1 if remat == "none" else 2
+    skeleton = MD.init_model(dataclasses.replace(
+        reduced(full), n_layers=full.n_layers, n_encoder_layers=full.n_encoder_layers),
+        seed=0, device="cpu")
+    groups = reference_leaves(skeleton)
+    n_tensors = sum(len(idx) for _, idx in groups)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = TRAIN_STEPS * passes * per_pass
+    for k in ("quantize_absmax", "quantize_int8", "dequantize_int8"):
+        want[k] = TRAIN_STEPS * n_tensors
+    step_designs = _add({}, flash_designs(FA, (TRAIN_BATCH, TRAIN_SEQ, hq, hd),
+                                          (TRAIN_BATCH, TRAIN_SEQ, hkv, hd), torch.bfloat16),
+                        TRAIN_STEPS * passes * per_pass)
+    losses = trained["losses"]
+    print(f"  launches {got} (expected {want}: {n_tensors} parameter tensors in "
+          f"{len(groups)} reference leaves); step_ms {trained['step_ms']} tokens_per_s "
+          f"{trained['tokens_per_s']} peak_mem_GB {peak / 1e9:.2f} of {card_bytes / 1e9:.2f}; "
+          f"losses {[round(x, 3) for x in losses]}; card {card}", flush=True)
+    if got != want:
+        fail(f"{arch} train launched the kernels {got}, expected {want}")
+    env.gate_variants(f"{arch} train", got_designs, **step_designs)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"{arch} train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{arch} train loss did not fall: {losses}")
+    if not peak < card_bytes:
+        fail(f"{arch} train peak memory {peak} is not under the card's {card_bytes}")
+    del trained
+    torch.cuda.empty_cache()
+
+    # ---- (d) a profiled train step: launch.train's step ---------------------------
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=lr, grad_compression="int8_ef",
+                       remat_policy=remat, total_steps=TRAIN_STEPS,
+                       warmup_steps=TRAIN_STEPS // 10)
+    holder = [TS.init_train_state(full, tcfg, seed=0, device=dev)]
+    tbatch = {k: v.to(dev) for k, v in make_batch_for(
+        full, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+    step_fn = TS.make_train_step(full, tcfg)
+
+    def train_one():
+        holder[0], _ = step_fn(holder[0], tbatch)
+
+    profile_steps(torch, train_one, 2, f"{arch} train step at full width, bf16, batch "
+                  f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, adamw + int8_ef, remat {remat}",
+                  card)
+    del holder, tbatch, step_fn
+    torch.cuda.empty_cache()
+    return {f"{prefix}train": got}, {f"{prefix}train": got_designs}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -810,6 +1077,9 @@ def main() -> None:
         print(f"  flash_attention launches by design {got} (expected {want})", flush=True)
         if got != want:
             fail(f"{what} launched the flash attention designs {got}, expected {want}")
+
+    env = types.SimpleNamespace(reset_counts=reset_counts, read_counts=read_counts,
+                                read_variants=read_variants, gate_variants=gate_variants)
 
     # ---- 1. environment ---------------------------------------------------
     phase("environment")
@@ -919,6 +1189,37 @@ def main() -> None:
                   arange(-8, TRAIN_SEQ - 8), arange(0, TRAIN_SEQ),
                   AttnSpec(causal=True), "tile"))
 
+    # gemma2-2b (head_dim 256: the CUDA-core design in bf16 too) with its
+    # window and softcap: the training shape; decode over the served 64-slot
+    # ring; a prefill over window + 256 keys, where the window bites; a
+    # decode over a 4096-slot ring (slot = position mod 4096) holding
+    # positions 900..4995 for a query at 5000, the oldest 5 past the window.
+    # whisper-tiny (head_dim 64, bf16 on the tensor-core designs): its
+    # encoder (1500 frames, non-causal: ragged 64-row tiles), the decoder's
+    # cross-attention over them at prefill (32 rows) and at decode.
+    gfull, wfull = get_config(LG_ARCH), get_config(ENCDEC_ARCH)
+    g_heads = (gfull.n_heads, gfull.n_kv_heads, gfull.get_head_dim())
+    w_heads = (wfull.n_heads, wfull.n_kv_heads, wfull.get_head_dim())
+    g_spec = AttnSpec(causal=True, window=gfull.attn_window,
+                      logit_softcap=gfull.attn_logit_softcap)
+    gw, t_enc = gfull.attn_window, wfull.encoder_seq_len
+    cases.append((f"gemma2_train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *g_heads),
+                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), g_spec, "cuda_core"))
+    cases.append((f"gemma2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *g_heads),
+                  *tail_pos(1, PROMPT + GEN), g_spec, "cuda_core"))
+    cases.append((f"gemma2_window_bites_{gw + 256}", (1, 256, gw + 256, *g_heads),
+                  *tail_pos(256, gw + 256), g_spec, "cuda_core"))
+    cases.append((f"gemma2_ring{gw}_past_window", (BATCH, 1, gw, *g_heads),
+                  arange(5000, 5001), torch.cat([arange(gw, 4996), arange(900, gw)]),
+                  g_spec, "cuda_core"))
+    cases.append((f"whisper_encoder{t_enc}", (BATCH, t_enc, t_enc, *w_heads),
+                  arange(0, t_enc), arange(0, t_enc), AttnSpec(causal=False), "tile"))
+    cases.append((f"whisper_cross_prefill{PROMPT}", (BATCH, PROMPT, t_enc, *w_heads),
+                  arange(0, PROMPT), arange(0, t_enc), AttnSpec(causal=False), "tile"))
+    cases.append((f"whisper_cross_decode{t_enc}", (BATCH, 1, t_enc, *w_heads),
+                  arange(PROMPT, PROMPT + 1), arange(0, t_enc), AttnSpec(causal=False),
+                  "split_kv"))
+
     path_err = None
     designs_seen = collections.Counter()
     for dtype in (torch.bfloat16, torch.float32):
@@ -937,7 +1238,7 @@ def main() -> None:
             err = (out.float() - ref.float()).abs().max().item()
             ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
                                 rtol=TOL[dname])
-            print(f"  {dname:8s} {label:28s} {design:9s} splits {splits:2d} "
+            print(f"  {dname:8s} {label:32s} {design:9s} splits {splits:2d} "
                   f"max_abs_err={err:.3e} tol={TOL[dname]:g} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if launched != want:
@@ -1184,128 +1485,17 @@ def main() -> None:
         del ins, y, yp, go, got, want
     torch.cuda.empty_cache()
 
-    # ---- 6. full-width serve ---------------------------------------------
-    phase(f"serve {ARCH} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    served = serve.main(["--arch", ARCH, "--batch", str(BATCH),
-                         "--prompt-len", str(PROMPT), "--gen", str(GEN),
-                         "--device", "cuda"])
-    serve_counts = read_counts()
-    serve_variants = read_variants()
-    serve_ssd = read_ssd_variants()
-    expected = {"flash_attention": (PROMPT + GEN) * full.n_layers,
-                "quantize_absmax": 0, "quantize_int8": 0, "dequantize_int8": 0,
-                "ssd_scan": 0}
-    rep = served.report
-    print(f"  launches {serve_counts} (expected {expected}); "
-          f"prefill_s {rep['prefill_s']} decode_s {rep['decode_s']} "
-          f"decode_tok_per_s {rep['decode_tok_per_s']} peak_mem_GB "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}", flush=True)
-    if serve_counts != expected:
-        fail(f"serve launched the kernels {serve_counts}, expected {expected}")
-    gate_variants("serve", serve_variants, split_kv=(PROMPT + GEN) * full.n_layers)
-    gate_ssd_variants("serve", serve_ssd)
-    if not torch.isfinite(served.logits.float()).all():
-        fail("serve produced non-finite logits")
-    if served.tokens.shape != (BATCH, GEN) or not (
-            (served.tokens >= 0) & (served.tokens < full.vocab_size)).all():
-        fail(f"serve tokens out of range or shape {tuple(served.tokens.shape)}")
-    del served
+    # ---- 6-7. full-width serve; decode against prefill ---------------------
+    lm_counts, lm_designs = lm_serve(torch, dev, card, ARCH, env, "")
 
-    # ---- 7. decode against prefill at full width --------------------------
-    # fp32 weights, activations and caches hold the decode path (kernel at
-    # Sq=1 over the ring cache) to the prefill path (kernel at Sq=32); the
-    # logits are bf16 either way (logits_fn), so the bf16 tolerance applies.
-    # The served bf16 model is run the same way and its difference printed:
-    # 36 layers of bf16 rounding, in GEMV and GEMM orders, move the logits by
-    # several bf16 ulps, so it is reported, not asserted.
-    phase("decode loop vs prefill forward at full width")
-    prompt = make_batch_for(full, BATCH, PROMPT)["tokens"].to(dev)
-    for dname in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
-        with torch.inference_mode():
-            params = MD.init_model(cfg, seed=0, device=dev)
-            caches = MD.init_decode_caches(cfg, BATCH, PROMPT + GEN,
-                                           dtype=MD.dtype_of(cfg), device=dev)
-            for pos in range(PROMPT):
-                dec, caches = MD.decode_step(params, cfg, caches,
-                                             prompt[:, pos:pos + 1], pos)
-            before = FA.LAUNCHES
-            pre, _ = MD.prefill(params, cfg, {"tokens": prompt})
-            torch.cuda.synchronize()
-        if FA.LAUNCHES - before != cfg.n_layers:
-            fail("prefill did not run the kernel once per layer")
-        err = (dec.float() - pre.float()).abs().max().item()
-        ok = torch.allclose(dec.float(), pre.float(), atol=TOL["bfloat16"],
-                            rtol=TOL["bfloat16"])
-        agree = (dec.argmax(-1) == pre.argmax(-1)).float().mean().item()
-        verdict = ("ok" if ok else "FAIL") if dname == "float32" else "reported"
-        print(f"  {dname:8s} last-position logits max_abs_err={err:.3e} "
-              f"(max |logit| {pre.float().abs().max().item():.3f}) "
-              f"tol={TOL['bfloat16']:g} argmax agreement {agree:.2f} {verdict}",
-              flush=True)
-        if dname == "float32" and not ok:
-            fail(f"decode logits disagree with prefill: max_abs_err={err}")
-        if dname == "bfloat16":
-            tok, pos = dec.argmax(-1)[:, None], [PROMPT]
+    # ---- 8. full-width training; a profiled train step ---------------------
+    got, got_designs = lm_train(torch, dev, card, TRAIN_ARCH, env, "",
+                                TrainConfig().learning_rate, "none")
+    lm_counts.update(got)
+    lm_designs.update(got_designs)
 
-            def decode_one():
-                nonlocal caches
-                _, caches = MD.decode_step(params, cfg, caches, tok, pos[0])
-                pos[0] += 1
-
-            with torch.inference_mode():
-                profile_steps(torch, decode_one, 4,
-                              f"decode step at full width, bf16, batch {BATCH}", card)
-        del params, caches
-    torch.cuda.empty_cache()
-
-    # ---- 8. full-width training -------------------------------------------
-    phase(f"train {TRAIN_ARCH} at full width (batch {TRAIN_BATCH}, seq "
-          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
-    train_argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH),
-                  "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-                  "--optimizer", "adamw", "--compression", "int8_ef",
-                  "--remat", "none", "--device", "cuda", "--log-every", "1"]
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    trained = train.main(train_argv)
-    train_counts = read_counts()
-    train_variants = read_variants()
-    train_ssd = read_ssd_variants()
-    # One kernel forward per layer per step (the backward recomputes the
-    # plain version); one launch of each codec kernel per parameter tensor
-    # per step, the tensors grouped into the reference's leaves.
-    # The tree's structure, from a narrow model of the same depth on the CPU.
-    skeleton = MD.init_model(dataclasses.replace(reduced(tcfg_full),
-                                                 n_layers=tcfg_full.n_layers),
-                             seed=0, device="cpu")
-    groups = reference_leaves(skeleton)
-    n_tensors, n_ref_leaves = sum(len(idx) for _, idx in groups), len(groups)
-    expected = {"flash_attention": TRAIN_STEPS * tcfg_full.n_layers,
-                **{k: TRAIN_STEPS * n_tensors for k in
-                   ("quantize_absmax", "quantize_int8", "dequantize_int8")},
-                "ssd_scan": 0}
-    losses = trained["losses"]
-    print(f"  launches {train_counts} (expected {expected}: {n_tensors} "
-          f"parameter tensors in {n_ref_leaves} reference leaves); "
-          f"step_ms {trained['step_ms']} tokens_per_s {trained['tokens_per_s']} "
-          f"peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; card {card}",
-          flush=True)
-    if train_counts != expected:
-        fail(f"train launched the kernels {train_counts}, expected {expected}")
-    gate_variants("train", train_variants, tile=TRAIN_STEPS * tcfg_full.n_layers)
-    gate_ssd_variants("train", train_ssd)
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        fail(f"train losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"train loss did not fall: {losses}")
-    del trained
-    torch.cuda.empty_cache()
-
-    # ---- 9. compress_tree on full-width grads; a profiled train step ------
-    phase("compress_tree on full-width grads vs plain; profiled train step")
+    # ---- 9. compress_tree on full-width grads ------------------------------
+    phase("compress_tree on full-width grads vs plain")
     tcfg = TrainConfig(optimizer="adamw", grad_compression="int8_ef",
                        remat_policy="none", total_steps=TRAIN_STEPS,
                        warmup_steps=TRAIN_STEPS // 10)
@@ -1313,6 +1503,7 @@ def main() -> None:
     batch = {k: v.to(dev) for k, v in make_batch_for(
         tcfg_full, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
     _, _, grads = TS._grad_fn(tcfg_full, tcfg)(state.params, batch)
+    n_ref_leaves = len(reference_leaves(grads))
 
     def plain_compress_tree(g_tree, e_tree):
         """int8_ef per reference leaf in plain PyTorch; a missing residual
@@ -1331,11 +1522,12 @@ def main() -> None:
 
     ef = None
     for rnd in range(2):                     # a fresh residual, then a carried one
-        kg, kef = C.compress_tree(grads, "int8_ef", ef)
+        # the plain version first: compress_tree writes its residuals into ef
         pg, pef = plain_compress_tree(grads, ef)
+        kg, ef = C.compress_tree(grads, "int8_ef", ef)
         torch.cuda.synchronize()
         same = all(torch.equal(bits(a), bits(b)) for a, b in
-                   zip(tree_leaves(kg) + tree_leaves(kef), pg + pef))
+                   zip(tree_leaves(kg) + tree_leaves(ef), pg + pef))
         for a, b in zip(tree_leaves(kg), pg):
             note("dequantize_int8", a, b)
         print(f"  round {rnd}: {len(pg)} tensors in {n_ref_leaves} reference "
@@ -1343,20 +1535,7 @@ def main() -> None:
               flush=True)
         if not same:
             fail("compress_tree on the card disagrees with its plain version")
-        ef = kef
-    del grads, kg, kef, pg, pef, ef
-    torch.cuda.empty_cache()
-
-    step_fn = TS.make_train_step(tcfg_full, tcfg)
-    holder = [state]
-
-    def train_one():
-        holder[0], _ = step_fn(holder[0], batch)
-
-    profile_steps(torch, train_one, 2,
-                  f"train step at full width, bf16, batch {TRAIN_BATCH} x "
-                  f"seq {TRAIN_SEQ}, adamw + int8_ef", card)
-    del holder, state, step_fn, batch
+    del grads, kg, pg, pef, ef, state, batch
     torch.cuda.empty_cache()
 
     # ---- 10. full-width mamba2 serve ----------------------------------------
@@ -1453,7 +1632,10 @@ def main() -> None:
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    mtrained = train.main(["--arch", SSM_ARCH] + train_argv[2:])
+    mtrained = train.main(["--arch", SSM_ARCH, "--batch", str(TRAIN_BATCH),
+                           "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                           "--optimizer", "adamw", "--compression", "int8_ef",
+                           "--remat", "none", "--device", "cuda", "--log-every", "1"])
     mtrain_counts = read_counts()
     mtrain_variants = read_variants()
     mtrain_ssd = read_ssd_variants()
@@ -1487,7 +1669,11 @@ def main() -> None:
     holder = [TS.init_train_state(mfull, tcfg, seed=0, device=dev)]
     batch = {k: v.to(dev) for k, v in make_batch_for(
         mfull, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
-    step_fn = TS.make_train_step(mfull, tcfg)
+    step_fn = TS.make_train_step(mfull, tcfg)     # launch.train's step
+
+    def train_one():
+        holder[0], _ = step_fn(holder[0], batch)
+
     what = (f"{SSM_ARCH} train step at full width, bf16, batch {TRAIN_BATCH} x seq "
             f"{TRAIN_SEQ}, adamw + int8_ef")
     # The step on the path's design (mma), then with the SSD forward sent to
@@ -1500,7 +1686,7 @@ def main() -> None:
                 stack.enter_context(unittest.mock.patch.object(
                     SSD, "plan", lambda x_shape, B_shape, dtype, chunk, *_, **__: SSD.Plan(
                         "cuda_core", SSD.smem_bytes(x_shape[3], B_shape[3], chunk))))
-            step_stats[design].append(profile_steps(   # phase 9's train_one, on these
+            step_stats[design].append(profile_steps(
                 torch, train_one, 2, f"{what}, SSD forward on {design}", card))
     print(f"  {SSM_ARCH} train step by SSD forward design (host wall, device busy "
           f"ms/step): {dict(step_stats)}; card {card}", flush=True)
@@ -1594,6 +1780,91 @@ def main() -> None:
               f"bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
               f"({n_bytes} B, {n_ops} flop); card {card}", flush=True)
         del q, k, v, ref, qt, kt, vt, mask
+
+    # Flash attention at gemma2-2b's and whisper-tiny's shapes, each beside its
+    # bound and yardstick. whisper's encoder and cross-attention decode are
+    # SDPA's own function (no mask). SDPA cannot apply gemma2's softcap, so its
+    # SDPA time is of the function without it ("sdpa_no_softcap_ms", is_causal;
+    # the 4096 window does not bite at these lengths), and its library call is
+    # flex_attention compiled with a tanh-softcap score_mod and the causal
+    # window as a block mask; each is checked against the plain version of
+    # what it computes.
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    flex = torch.compile(flex_attention)
+
+    def flex_call(q, k, v, q_pos, kv_pos, spec):
+        off = kv_pos.shape[0] - q_pos.shape[0]      # tail positions
+
+        def score_mod(s, b, h, qi, ki):
+            return torch.tanh(s / spec.logit_softcap) * spec.logit_softcap
+
+        def mask_mod(b, h, qi, ki):
+            return (ki <= qi + off) & (ki > qi + off - spec.window)
+
+        mask = create_block_mask(mask_mod, None, None, q.shape[1], k.shape[1], device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                            enable_gqa=True)
+
+    for label, (B, Sq, Skv), (nh, nkv, dh), spec, (q_pos, kv_pos) in (
+            (f"gemma2_train{TRAIN_SEQ}", t_dims, g_heads, g_spec,
+             tail_pos(TRAIN_SEQ, TRAIN_SEQ)),
+            (f"gemma2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN), g_heads, g_spec,
+             tail_pos(1, PROMPT + GEN)),
+            (f"whisper_encoder{t_enc}", (BATCH, t_enc, t_enc), w_heads,
+             AttnSpec(causal=False), (arange(0, t_enc), arange(0, t_enc))),
+            (f"whisper_cross_decode{t_enc}", (BATCH, 1, t_enc), w_heads,
+             AttnSpec(causal=False), (arange(PROMPT, PROMPT + 1), arange(0, t_enc)))):
+        q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
+        mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
+        causal_kw = {"is_causal": True} if spec.causal and Sq > 1 else {}
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **causal_kw)
+
+        def agrees(fn, want, what):
+            got = fn().transpose(1, 2).float()
+            err = (got - want.float()).abs().max().item()
+            if not torch.allclose(got, want.float(), atol=TOL["bfloat16"],
+                                  rtol=TOL["bfloat16"]):
+                fail(f"{what} is not the {label} row's function: max_abs_err {err}")
+            return err
+
+        row = {"ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
+               "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
+               "causal": spec.causal, "window": spec.window,
+               "softcap": spec.logit_softcap}
+        if spec.logit_softcap:
+            no_cap = spec._replace(logit_softcap=0.0)
+            sdpa_err = agrees(sdpa, FA.attention_plain(q, k, v, q_pos, kv_pos, no_cap),
+                              "SDPA without the softcap")
+            row["sdpa_no_softcap_ms"] = time_ms(sdpa)
+            lib = flex_call(q, k, v, q_pos, kv_pos, spec)
+            lib_err = agrees(lib, ref, "flex_attention")
+            row["library_ms"], row["library_call"] = time_ms(lib), "flex_attention"
+            lib_txt = (f"flex_attention {row['library_ms']:.4f} ms (|flex-plain| "
+                       f"{lib_err:.2e}), sdpa without the softcap "
+                       f"{row['sdpa_no_softcap_ms']:.4f} ms (|sdpa-plain without it| "
+                       f"{sdpa_err:.2e})")
+        else:
+            sdpa_err = agrees(sdpa, ref, "SDPA")
+            row["library_ms"], row["library_call"] = time_ms(sdpa), "sdpa none"
+            lib_txt = f"sdpa {row['library_ms']:.4f} ms (|sdpa-plain| {sdpa_err:.2e})"
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ref, q_pos, kv_pos))
+        n_ops = 4 * B * nh * dh * int(mask.sum().item())
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops, "bfloat16")
+        design = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype)
+        row["design"], row["n_splits"] = design.variant, design.n_splits
+        rows[label] = row
+        print(f"  {label:26s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] bf16 "
+              f"causal={spec.causal} window={spec.window} softcap={spec.logit_softcap:g} "
+              f"{design.variant} ({design.n_splits} split): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, {lib_txt}, bound {row['bound_ms']:.6f} ms by "
+              f"{row['bound_by']} ({n_bytes} B, {n_ops} flop), kernel/bound "
+              f"{row['ms'] / row['bound_ms']:.1f}; card {card}", flush=True)
+        del q, k, v, qt, kt, vt, ref, mask
 
     # What the tile kernel's time is made of: non-causal calls at the training
     # shape over 1, 8 and 16 KV tiles of 64 keys (a line through them splits a
@@ -1740,10 +2011,18 @@ def main() -> None:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
 
-    paths = {"serve": serve_counts, "train": train_counts,
+    # ---- 16. gemma2-2b, 17. whisper-tiny ----------------------------------------
+    for arch, lr in ((LG_ARCH, LG_LR), (ENCDEC_ARCH, ENCDEC_LR)):
+        for got, got_designs in (lm_serve(torch, dev, card, arch, env, f"{arch}_"),
+                                 lm_train(torch, dev, card, arch, env, f"{arch}_",
+                                          lr, LM_REMAT)):
+            lm_counts.update(got)
+            lm_designs.update(got_designs)
+
+    paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
              "mamba2_prefill_check": prefill_counts,
-             "sharded_pipeline": sharded_counts}
+             "sharded_pipeline": sharded_counts, **lm_counts}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}
@@ -1753,17 +2032,18 @@ def main() -> None:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:122",
-        "launches": serve_counts["flash_attention"],
+        "launches": paths["serve"]["flash_attention"],
         "launches_by_path": by_path("flash_attention"),
-        "launches_by_design": {"serve": serve_variants, "train": train_variants,
+        "launches_by_design": {**{k: lm_designs.pop(k) for k in ("serve", "train")},
                                "mamba2_serve": mserve_variants,
-                               "mamba2_train": mtrain_variants},
+                               "mamba2_train": mtrain_variants, **lm_designs},
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"],
         "rows": {k: r for k, r in rows.items()
-                 if k.startswith(("decode_", "prefill", "train", "tile_cost"))},
+                 if k.startswith(("decode_", "prefill", "train", "tile_cost",
+                                  "gemma2_", "whisper_"))},
     }]
     for name, line in (("quantize_absmax", 92), ("quantize_int8", 101),
                        ("dequantize_int8", 120)):
@@ -1772,7 +2052,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": f"src/repro/kernels/quantize.py:{line}",
-            "launches": train_counts[name],
+            "launches": paths["train"][name],
             "launches_by_path": by_path(name),
             "max_abs_err": codec_err[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -1786,8 +2066,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:92",
         "launches": mtrain_counts["ssd_scan"],
         "launches_by_path": by_path("ssd_scan"),
-        "launches_by_design": {"serve": serve_ssd, "train": train_ssd,
-                               "mamba2_serve": mserve_ssd, "mamba2_train": mtrain_ssd,
+        "launches_by_design": {"mamba2_serve": mserve_ssd, "mamba2_train": mtrain_ssd,
                                **{f"mamba2_prefill_check_{k}": v
                                   for k, v in prefill_ssd.items()}},
         "max_abs_err": ssd_err, "max_abs_err_vs_mma_plain": ssd_mma_gap,

@@ -6,9 +6,12 @@ import importlib
 from repro_torch.configs.base import ModelConfig, TrainConfig, reduced
 
 _PORTED = {
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "nemotron-4-15b": "repro_torch.configs.nemotron4_15b",
     "qwen2.5-3b": "repro_torch.configs.qwen2p5_3b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 

@@ -1,5 +1,5 @@
 """Synthetic data (deterministic, step-indexed), as torch tensors: LM
-tokens and LeNet image batches.
+tokens, whisper's stub frames and LeNet image batches.
 
 The draws are the reference's numpy draws (``SeedSequence([seed, step])``),
 so a batch is bit-equal to ``repro.data``'s for the same arguments.
@@ -37,10 +37,19 @@ class TokenStream:
 
 def make_batch_for(cfg: ModelConfig, batch: int, seq: int, step: int = 0,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The token batch of ``repro.data.make_batch_for`` (text models only)."""
-    if cfg.frontend != "none" or cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: frontend inputs not ported yet")
-    return {"tokens": TokenStream(cfg.vocab_size, batch, seq, seed).batch(step)}
+    """The batch of ``repro.data.make_batch_for``, on the CPU: tokens, and
+    for an encoder-decoder the stub frame embeddings ``frames`` [batch,
+    encoder_seq_len, d_model] fp32, drawn from ``SeedSequence([seed, step,
+    7])`` (normal × 0.02). The vision stub's patches are not ported."""
+    if cfg.frontend == "vision_patch_stub":
+        raise NotImplementedError(f"{cfg.name}: vision patches not ported yet")
+    out = {"tokens": TokenStream(cfg.vocab_size, batch, seq, seed).batch(step)}
+    if cfg.is_encoder_decoder:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, step, 7]))
+        frames = rng.normal(size=(batch, cfg.encoder_seq_len, cfg.d_model)
+                            ).astype(np.float32) * 0.02
+        out["frames"] = torch.from_numpy(frames)
+    return out
 
 
 def image_batch(shape, batch: int, step: int, seed: int = 0

@@ -159,9 +159,10 @@ def init_error_feedback(params):
 
 @torch.no_grad()
 def compress_tree(grads, mode: str, ef=None):
-    """``compress_decompress`` per reference leaf -> (new_grads, new_ef).
+    """``compress_decompress`` per reference leaf -> (new_grads, ef).
 
-    ``ef`` (when present) is the ``init_error_feedback`` tree; in "int8_ef"
+    ``ef`` (when present) is the ``init_error_feedback`` tree; the new
+    residuals are written into its tensors, and it comes back. In "int8_ef"
     mode a missing ``ef`` is initialized to zeros and returned, so the
     residual is never silently dropped — callers must thread it.
     """
@@ -172,13 +173,12 @@ def compress_tree(grads, mode: str, ef=None):
     g_leaves = tree_leaves(grads)
     e_leaves = None if ef is None else tree_leaves(
         tree_map(lambda g, e: e, grads, ef))            # in grads' order
-    new_g, new_e = list(g_leaves), None if ef is None else list(e_leaves)
+    new_g = list(g_leaves)
     for _, idx in reference_leaves(grads):
         errs = None if ef is None else [e_leaves[i] for i in idx]
         ds, es = compress_leaf([g_leaves[i] for i in idx], mode, errs)
         for j, i in enumerate(idx):
             new_g[i] = ds[j]
             if es is not None:
-                new_e[i] = es[j]
-    return (tree_unflatten(grads, new_g),
-            None if ef is None else tree_unflatten(grads, new_e))
+                e_leaves[i].copy_(es[j])
+    return tree_unflatten(grads, new_g), ef

@@ -5,9 +5,11 @@ device unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --prompt-len 32 --gen 32
 
-Weights are the port's own seeded random init, drawn on the device. The
-last stdout line is the report JSON, with the keys of
-``repro.launch.serve`` plus ``device``.
+Weights are the port's own seeded random init, drawn on the device. An
+encoder-decoder (whisper-tiny) encodes the batch's stub frames once, before
+the decode loop, and decodes against their cross K/V. The last stdout line
+is the report JSON, with the keys of ``repro.launch.serve`` plus ``device``
+(and ``encode_s`` for an encoder-decoder).
 """
 from __future__ import annotations
 
@@ -75,17 +77,27 @@ def main(argv=None):
         return None
 
     params = MD.init_model(cfg, seed=args.seed, device=device)
-    prompt = make_batch_for(cfg, args.batch, args.prompt_len, step=0,
-                            seed=args.seed)["tokens"].to(device)
+    batch = make_batch_for(cfg, args.batch, args.prompt_len, step=0,
+                           seed=args.seed)
+    prompt = batch["tokens"].to(device)
     B, S = prompt.shape
     caches = MD.init_decode_caches(cfg, B, S + args.gen, device=device)
+
+    enc_kv, t_encode = None, None
+    if cfg.is_encoder_decoder:                 # once per request
+        sync(device)
+        t0 = time.perf_counter()
+        enc_kv = MD.encode(params, cfg, batch["frames"].to(device))
+        sync(device)
+        t_encode = time.perf_counter() - t0
 
     sync(device)
     t0 = time.perf_counter()
     logits = None
     for pos in range(S):                       # batched prefill-by-decode
         logits, caches = MD.decode_step(params, cfg, caches,
-                                        prompt[:, pos:pos + 1], pos)
+                                        prompt[:, pos:pos + 1], pos,
+                                        enc_kv=enc_kv)
     sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -94,7 +106,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     for i in range(args.gen):
         out_tokens.append(tok)
-        logits, caches = MD.decode_step(params, cfg, caches, tok, S + i)
+        logits, caches = MD.decode_step(params, cfg, caches, tok, S + i,
+                                        enc_kv=enc_kv)
         tok = torch.argmax(logits, dim=-1)[:, None]
     sync(device)
     t_decode = time.perf_counter() - t0
@@ -108,6 +121,8 @@ def main(argv=None):
         "sample_tokens": gen[0, :8].tolist(),
         "device": device_name(device),
     }
+    if t_encode is not None:
+        report["encode_s"] = round(t_encode, 3)
     print(json.dumps(report))
     return Served(report, gen, logits)
 

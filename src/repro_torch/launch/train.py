@@ -5,7 +5,11 @@ cpu`` is given.
       --batch 8 --seq 512 --steps 8 --compression int8_ef
 
 Weights are the port's own seeded random init, drawn on the device; the
-batches are the reference's deterministic step-indexed tokens. The last
+batches are the reference's deterministic step-indexed tokens (and stub
+frames for an encoder-decoder). The step updates the parameters, moments
+and residuals in place, as the reference's jitted step donates its state.
+``--remat`` is the block remat policy: none, full, or dots (the dense
+products' outputs kept). The last
 stdout line is the report JSON, with the keys of ``repro.launch.train``'s
 report that a single-device run has (``arch steps first_loss final_loss
 wall_s losses strategy mesh``) plus ``device``, ``step_ms`` (median over the

@@ -1,5 +1,5 @@
-"""GQA attention with QKV bias and a ring KV cache (``repro.models.attention``,
-the serving subset).
+"""GQA attention with QKV bias, a ring KV cache and cross-attention to given
+K/V (``repro.models.attention``, the GQA subset).
 
 ``attend`` sends q/k/v to ``kernels.ops.attention``: the CUDA flash kernel on
 the card, its plain version on the CPU. The plain version, the reference's
@@ -46,6 +46,7 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 spec: AttnSpec, positions: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, ...]] = None,
                 cache_pos: Optional[int] = None,
+                kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """x: [B,S,D]; positions: int32 [S]. cache: (k, v, pos) with k,v
     [B,cap,Hkv,hd] ring buffers and pos [cap] the absolute position held in
@@ -54,10 +55,18 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     * prefill: cache is None -> attend within x, return (y, (k, v, positions)).
     * decode: the new k/v/positions are written in place at slot
       ``cache_pos % cap`` and the updated cache tensors are returned.
+    * cross-attention: ``kv_override`` gives precomputed (k, v)
+      [B,T,Hkv,hd] at positions ``arange(T)``; neither q nor k is rotated
+      and no cache is written.
     """
     B, S, _ = x.shape
     hd = cfg.get_head_dim()
     q = dense(params["wq"], x).view(B, S, cfg.n_heads, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+        o = attend(q, k, v, positions, kv_pos, spec)
+        return dense(params["wo"], o.reshape(B, S, cfg.n_heads * hd)), (k, v, positions)
     k = dense(params["wk"], x).view(B, S, cfg.n_kv_heads, hd)
     v = dense(params["wv"], x).view(B, S, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)

@@ -2,9 +2,11 @@
 
 ``params_from_jax`` takes the tree of ``repro.models.layers.pvalues(params)``
 with numpy leaves (per-layer leaves stacked ``[n_layers, ...]``), unstacks
-the layers and turns every ``[d_in, d_out]`` dense kernel into a
-``[d_out, d_in]`` ``F.linear`` weight, so both packages compute the same
-function; bare arrays keep their layout. ``lenet_params_from_jax`` does the
+the layers of the decoder's segments and of an encoder's, and turns every
+``[d_in, d_out]`` dense kernel into a ``[d_out, d_in]`` ``F.linear`` weight,
+so both packages compute the same function; bare arrays keep their layout,
+and a layer's subtrees (an ``lg_pair``'s ``local``/``global``, a decoder
+block's ``xattn``, an MLP with or without its gate) map key for key. ``lenet_params_from_jax`` does the
 same for LeNet-5's weights (HWIO convs, fc1's rows in the port's flatten
 order).
 """
@@ -19,7 +21,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.lenet5 import LeNet5Config
 from repro_torch.models.lenet import feature_dims
-from repro_torch.models.model import build_segments
+from repro_torch.models.model import build_segments, encoder_segment
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,6 +69,13 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     }
     if "lm_head" in tree:
         params["lm_head"] = _dense(tree["lm_head"], dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "segments": [[_convert(_layer(enc["segments"][0], i), dev)
+                          for i in range(encoder_segment(cfg).n)]],
+            "final_norm": {"scale": _tensor(enc["final_norm"]["scale"], dev)},
+        }
     return params
 
 

@@ -1,6 +1,7 @@
-"""Layer primitives over plain dicts of tensors (the serving subset of
-``repro.models.layers``, the LeNet activations, and the Megatron ``tp_f`` /
-``tp_g`` pair with the ``LocalDim`` marker of its manual tensor-parallel path).
+"""Layer primitives over plain dicts of tensors (``repro.models.layers``: the
+dense, MLP, norm, embedding and rope primitives, every activation of
+``activation_fn``, and the Megatron ``tp_f`` / ``tp_g`` pair with the
+``LocalDim`` marker of its manual tensor-parallel path).
 
 A dense layer is ``{"weight": [d_out, d_in], "bias": [d_out]}``, the
 ``F.linear`` layout; ``models.convert`` maps the reference's ``[d_in, d_out]``
@@ -22,6 +23,7 @@ from repro_torch.dist.sharding import all_reduce
 Params = Dict[str, torch.Tensor]
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+GATED = ("silu", "geglu")  # MLP activations applied to a gate
 
 
 # ---------------------------------------------------------------------------
@@ -55,12 +57,15 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
     return p
 
 
-def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, activation: str,
              dtype: torch.dtype) -> Params:
-    """Gated MLP weights (up, down, gate)."""
-    return {"up": init_dense(gen, d_model, d_ff, dtype),
-            "down": init_dense(gen, d_ff, d_model, dtype),
-            "gate": init_dense(gen, d_model, d_ff, dtype)}
+    """MLP weights (up, down), and a gate for the gated activations (silu,
+    geglu)."""
+    p = {"up": init_dense(gen, d_model, d_ff, dtype),
+         "down": init_dense(gen, d_ff, d_model, dtype)}
+    if activation in GATED:
+        p["gate"] = init_dense(gen, d_model, d_ff, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -84,14 +89,47 @@ def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     return params["table"][tokens]
 
 
-def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits ``x @ table.T``, returned in fp32.
+class _Unembed(torch.autograd.Function):
+    """``x @ table.T`` accumulated and returned in fp32 from operands of any
+    float dtype: the reference's ``preferred_element_type=float32``. On a
+    CUDA device a bf16 GEMM with an fp32 output (``torch.mm(...,
+    out_dtype=float32)``), so no fp32 copy of the table is made; on the CPU
+    the operands are upcast. The backward rounds the cotangent to the
+    operands' dtype and multiplies in it, as a product in that dtype
+    followed by a cast to fp32 would."""
 
-    The reference asks for an fp32 result of a bf16 product; here a bf16
-    product is rounded to bf16 before the cast, which ``logits_fn``'s bf16
-    cast makes the same value unless a final softcap sits in between.
-    """
-    return F.linear(x, params["table"]).float()
+    @staticmethod
+    def forward(x, table):
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.dtype == table.dtype == torch.float32:
+            y = x2 @ table.t()
+        elif x2.device.type == "cpu":
+            y = x2.float() @ table.float().t()
+        else:
+            y = torch.mm(x2, table.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], table.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        gx = gt = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ table).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gt = g2.t() @ x.reshape(-1, x.shape[-1])
+        return gx, gt
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ table.T`` in fp32, accumulated in fp32 and never rounded
+    to the operands' dtype first (a final softcap applies to these values
+    before ``logits_fn``'s bf16 cast)."""
+    return _Unembed.apply(x, params["table"])
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -113,12 +151,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation (approximate=True)
+    return F.gelu(x, approximate="tanh")
+
+
+def _sqrelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(x))
+
+
+_ACTIVATIONS = {"silu": F.silu, "geglu": _gelu_tanh, "gelu": _gelu_tanh,
+                "relu": torch.relu, "sqrelu": _sqrelu, "tanh": torch.tanh,
+                "sigmoid": torch.sigmoid}
+
+
 def activation_fn(name: str):
-    """The LeNet activations of ``repro.models.layers.activation_fn``."""
-    fns = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid}
-    if name not in fns:
-        raise ValueError(f"activation {name!r} is not ported (have {sorted(fns)})")
-    return fns[name]
+    """``repro.models.layers.activation_fn``: the MLP activations (silu and
+    geglu gate the MLP; the gating is its structure) and LeNet's."""
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return _ACTIVATIONS[name]
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -126,11 +178,13 @@ def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """Gated-silu MLP: down(silu(gate(x)) * up(x))."""
-    if activation != "silu":
-        raise NotImplementedError(f"mlp activation {activation!r} not ported yet")
+    """down(act(gate(x)) * up(x)) with a gate, else down(act(up(x)))."""
+    act = activation_fn(activation)
     up = dense(params["up"], x)
-    h = F.silu(dense(params["gate"], x)) * up
+    if "gate" in params:
+        h = act(dense(params["gate"], x)) * up
+    else:
+        h = act(up)
     return dense(params["down"], h)
 
 

@@ -8,8 +8,11 @@ over the whole leaf. So it stacks each reference leaf back into the
 reference's layout (``tree.reference_leaves``; dense weights transposed to
 ``[d_in, d_out]``), updates it there and keeps its state in that layout.
 
-Updates are functional, as in the reference: new tensors come back and the
-inputs are left as they are.
+Updates write into the parameters and the optimizer state they are given,
+and return those same tensors: the counterpart of the reference's train
+step, which donates its state, so a 2.6B-parameter model's update holds no
+second copy of its parameters and moments. The arithmetic is the
+reference's, element for element; only where the result lands differs.
 """
 from __future__ import annotations
 
@@ -19,8 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.tree import (reference_leaves, tree_leaves, tree_map,
-                              tree_unflatten)
+from repro_torch.tree import is_stacked, reference_leaves, tree_leaves, tree_map
 
 
 class OptState(NamedTuple):
@@ -72,12 +74,12 @@ def adamw_update(params, grads, state: OptState, tcfg: TrainConfig,
         v_new = b2 * v.float() + (1 - b2) * gf * gf
         update = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
         update = update + wd * p.float()
-        new_p = p.float() - lr * update
-        return [new_p.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)]
+        p.copy_(p.float() - lr * update)
+        m.copy_(m_new)
+        v.copy_(v_new)
 
-    out = tree_leaves(tree_map(upd, params, grads, state.mu, state.nu))
-    new_p, new_m, new_v = (tree_unflatten(params, out[i::3]) for i in range(3))
-    return new_p, OptState(step, new_m, new_v)
+    tree_map(upd, params, grads, state.mu, state.nu)
+    return params, OptState(step, state.mu, state.nu)
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +99,11 @@ def sgd_update(params, grads, state: OptState, tcfg: TrainConfig, lr: float):
     def upd(p, g, m):
         gf = g.float() + tcfg.weight_decay * p.float()
         m_new = b1 * m.float() + gf
-        new_p = p.float() - lr * m_new
-        return [new_p.to(p.dtype), m_new.to(m.dtype)]
+        p.copy_(p.float() - lr * m_new)
+        m.copy_(m_new)
 
-    out = tree_leaves(tree_map(upd, params, grads, state.mu))
-    return (tree_unflatten(params, out[0::2]),
-            OptState(state.step + 1, tree_unflatten(params, out[1::2]), None))
+    tree_map(upd, params, grads, state.mu)
+    return params, OptState(state.step + 1, state.mu, None)
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +115,11 @@ def _to_reference(path, tensors):
     ``[d_in, d_out]``, segment layers stacked on a leading axis."""
     ts = [t.float().transpose(-1, -2) if path[-1] == "weight" else t.float()
           for t in tensors]
-    return torch.stack(ts) if path[0] == "segments" else ts[0]
+    return torch.stack(ts) if is_stacked(path) else ts[0]
 
 
 def _from_reference(path, x):
-    xs = list(x.unbind(0)) if path[0] == "segments" else [x]
+    xs = list(x.unbind(0)) if is_stacked(path) else [x]
     return [t.transpose(-1, -2) if path[-1] == "weight" else t for t in xs]
 
 
@@ -142,27 +143,25 @@ def adafactor_init(params, tcfg: TrainConfig) -> OptState:
 @torch.no_grad()
 def adafactor_update(params, grads, state: OptState, tcfg: TrainConfig,
                      lr: float):
+    """Each reference leaf is updated in the reference's stacked layout,
+    then written back into the port's tensors and the factored moments."""
     eps = 1e-30
     step = state.step + 1
     decay = float(np.float32(1.0) - np.float32(step) ** np.float32(-0.8))
     leaves = tree_leaves(params)
     gleaves = tree_leaves(tree_map(lambda p, g: g, params, grads))
-    new_leaves = list(leaves)
-    new_nu = []
     for (path, idx), nu in zip(reference_leaves(params), state.nu):
         gf = _to_reference(path, [gleaves[i] for i in idx])
         g2 = gf * gf + eps
         if gf.dim() >= 2:
             row, col = nu
-            r = decay * row + (1 - decay) * g2.mean(dim=-1)
-            c = decay * col + (1 - decay) * g2.mean(dim=-2)
-            rc = r / torch.clamp(r.mean(dim=-1, keepdim=True), min=eps)
-            v = rc[..., None] * c[..., None, :]
-            new_nu.append((r, c))
+            row.copy_(decay * row + (1 - decay) * g2.mean(dim=-1))
+            col.copy_(decay * col + (1 - decay) * g2.mean(dim=-2))
+            rc = row / torch.clamp(row.mean(dim=-1, keepdim=True), min=eps)
+            v = rc[..., None] * col[..., None, :]
         else:
-            (full,) = nu
-            v = decay * full + (1 - decay) * g2
-            new_nu.append((v,))
+            (v,) = nu
+            v.copy_(decay * v + (1 - decay) * g2)
         update = gf / torch.sqrt(torch.clamp(v, min=eps))
         # update clipping (RMS <= 1)
         rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
@@ -171,8 +170,8 @@ def adafactor_update(params, grads, state: OptState, tcfg: TrainConfig,
         update = update + tcfg.weight_decay * p_ref
         new_p = p_ref - lr * update
         for i, t in zip(idx, _from_reference(path, new_p)):
-            new_leaves[i] = t.to(leaves[i].dtype).contiguous()
-    return tree_unflatten(params, new_leaves), OptState(step, None, new_nu)
+            leaves[i].copy_(t)
+    return params, OptState(step, None, state.nu)
 
 
 # ---------------------------------------------------------------------------

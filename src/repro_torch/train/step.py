@@ -4,8 +4,11 @@ comes with the distributed slice).
 
 ``make_train_step`` returns a function of (state, batch), as the reference
 does, run eagerly. Gradients come from ``torch.autograd.grad`` with respect
-to the parameter tensors; the codec, clipping and the optimizer run without
-autograd. The step is functional: the state passed in is left as it is.
+to the parameter tensors (zeros for a parameter the loss does not reach);
+the codec, clipping and the optimizer run without autograd. The step
+updates the state it is given in place (parameters, optimizer moments,
+error-feedback residuals), as the reference's jitted step donates its state
+(``donate_argnums=(0,)``), so a full-width model's state is not held twice.
 """
 from __future__ import annotations
 
@@ -54,7 +57,8 @@ def _grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
         loss, metrics = MD.loss_fn(tree_unflatten(params, leaves), cfg, batch,
                                    remat=tcfg.remat_policy,
                                    ce_impl=tcfg.ce_impl)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten(params, grads)
     return loss_and_grads
@@ -82,7 +86,8 @@ def _loss_and_grads(grad_fn, params, batch, microbatches: int):
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     microbatches: int = 1):
-    """Returns train_step(state, batch) -> (state, metrics)."""
+    """Returns train_step(state, batch) -> (state, metrics); the state that
+    comes back holds the tensors of the one passed in, updated."""
     _, opt_update = make_optimizer(tcfg.optimizer)
     grad_fn = _grad_fn(cfg, tcfg)
 

@@ -64,15 +64,37 @@ def _paths(tree, path=()) -> List[Tuple]:
     return [path]
 
 
+# Path prefixes under which the port keeps a list of layers, each followed
+# by the segment index and then the layer index: the decoder's segments and
+# an encoder's.
+_STACKS = (("segments",), ("encoder", "segments"))
+
+
+def _stack_prefix(path) -> int:
+    """Length of ``path``'s stack prefix plus its segment index, or 0."""
+    for pre in _STACKS:
+        if path[:len(pre)] == pre:
+            return len(pre) + 1
+    return 0
+
+
+def is_stacked(key: Tuple) -> bool:
+    """Whether the reference leaf ``key`` stacks layers."""
+    return _stack_prefix(key) > 0
+
+
 def reference_leaves(tree) -> List[Tuple[Tuple, List[int]]]:
     """``(path, indices)`` per reference leaf, the indices into
     ``tree_leaves(tree)``.
 
     A leaf under ``("segments", s, layer, *rest)`` belongs to the reference
-    leaf ``("segments", s, *rest)``, stacked over the layers in order; any
-    other leaf is a reference leaf of its own."""
+    leaf ``("segments", s, *rest)``, stacked over the layers in order, and
+    one under ``("encoder", "segments", s, layer, *rest)`` to ``("encoder",
+    "segments", s, *rest)``; any other leaf is a reference leaf of its
+    own."""
     groups: Dict[Tuple, List[int]] = {}
     for i, path in enumerate(_paths(tree)):
-        key = path[:2] + path[3:] if path[:1] == ("segments",) else path
+        n = _stack_prefix(path)
+        key = path[:n] + path[n + 1:] if n else path
         groups.setdefault(key, []).append(i)
     return list(groups.items())

@@ -44,7 +44,8 @@ def test_make_batch_for_tokens_bit_equal(arch, step, seed):
         np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "smollm-360m", "mamba2-370m",
+                                  "gemma2-2b", "whisper-tiny", "nemotron-4-15b"])
 def test_configs_equal_reference(arch):
     full_ref, full = jax_get_config(arch), get_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(full_ref)
@@ -62,8 +63,8 @@ def test_qwen_full_width_size():
     assert 3.0e9 < cfg.param_count() < 3.2e9
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-1.2b", "deepseek-v3-671b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b",
+                                  "deepseek-v3-671b", "internvl2-76b"])
 def test_unported_arch_raises(arch):
     jax_get_config(arch)                    # known to the reference
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -124,14 +124,19 @@ def test_optimizer_updates_match(name):
 
 
 def test_optimizers_are_functional_and_keep_dtypes():
-    """Inputs are left as they are; bf16 params stay bf16, state is fp32."""
-    p = {"w": torch.ones(3, 2, dtype=torch.bfloat16)}
+    """Updates write into the given params and state and return those
+    tensors (the step's donated state); bf16 params stay bf16, state is
+    fp32."""
     g = {"w": torch.full((3, 2), 0.5, dtype=torch.bfloat16)}
     for name in ("adamw", "sgd", "adafactor"):
+        p = {"w": torch.ones(3, 2, dtype=torch.bfloat16)}
         init, upd = make_optimizer(name)
         state = init(p, TrainConfig())
-        new, state = upd(p, g, state, TrainConfig(), 1e-2)
-        assert new["w"].dtype == torch.bfloat16
-        assert torch.equal(p["w"], torch.ones(3, 2, dtype=torch.bfloat16))
-        assert all(t.dtype == torch.float32 for t in
-                   tree_leaves([state.mu, state.nu]) if t is not None)
+        moments = [t for t in tree_leaves([state.mu, state.nu]) if t is not None]
+        new, new_state = upd(p, g, state, TrainConfig(), 1e-2)
+        assert new["w"] is p["w"] and new["w"].dtype == torch.bfloat16
+        assert not torch.equal(p["w"], torch.ones(3, 2, dtype=torch.bfloat16))
+        assert all(a is b for a, b in zip(
+            [t for t in tree_leaves([new_state.mu, new_state.nu]) if t is not None],
+            moments)) and moments
+        assert all(t.dtype == torch.float32 for t in moments)

@@ -92,6 +92,12 @@ def test_kernel_wrapper_refuses_cpu_tensors():
      "--prompt-len", "3", "--gen", "2", "--seed", "5"],
     ["--arch", "mamba2-370m", "--reduced", "--device", "cpu", "--batch", "2",
      "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "gemma2-2b", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "nemotron-4-15b", "--reduced", "--device", "cpu", "--batch", "1",
+     "--prompt-len", "3", "--gen", "2"],
 ])
 def test_serve_cpu_report(argv, capsys):
     from repro_torch.launch import serve
@@ -105,6 +111,7 @@ def test_serve_cpu_report(argv, capsys):
     assert report["generated"] == gen and report["devices"] == 1
     assert report["sample_tokens"] == served.tokens[0, :8].tolist()
     assert torch.isfinite(served.logits.float()).all()
+    assert ("encode_s" in report) == ("whisper-tiny" in argv)
 
 
 def test_serve_dry_run(capsys):
@@ -177,6 +184,23 @@ def test_mamba2_without_device_flag_needs_cuda(entry):
             serve.main(["--arch", "mamba2-370m", "--reduced", "--batch", "1",
                         "--prompt-len", "2", "--gen", "1"])
     assert (FA.LAUNCHES, _codec_launches(), SSD.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-tiny"])
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_new_archs_without_device_flag_need_cuda(entry, arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would run")
+    from repro_torch.launch import serve, train
+    before = (FA.LAUNCHES, _codec_launches())
+    with pytest.raises(RuntimeError, match="cuda"):
+        if entry == "train":
+            train.main(["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
+                        "--seq", "8", "--remat", "dots"])
+        else:
+            serve.main(["--arch", arch, "--reduced", "--batch", "1",
+                        "--prompt-len", "2", "--gen", "1"])
+    assert (FA.LAUNCHES, _codec_launches()) == before
 
 
 def _ssd_cpu_inputs():
@@ -263,6 +287,13 @@ def test_ssd_source_is_for_hopper():
      "full", "--dtype", "float32", "--seed", "3"],
     ["--arch", "mamba2-370m", "--reduced", "--device", "cpu", "--steps", "2",
      "--batch", "2", "--seq", "40", "--compression", "int8_ef"],
+    ["--arch", "gemma2-2b", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "16", "--compression", "int8_ef", "--remat", "dots"],
+    ["--arch", "whisper-tiny", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "16", "--compression", "int8_ef", "--remat", "dots",
+     "--optimizer", "adafactor"],
+    ["--arch", "nemotron-4-15b", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "8", "--optimizer", "sgd"],
 ])
 def test_train_cpu_report(argv, capsys):
     from repro_torch.launch import train

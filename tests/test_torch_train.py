@@ -129,16 +129,19 @@ def test_cross_entropy_matches(impl):
 
 
 def test_remat_full_recomputes_the_same_grads():
+    """"full" and "dots" recompute the blocks in the backward and give
+    "none"'s grads ("dots" keeps the dense products' outputs)."""
     _, cfg = _cfgs("h4kv2")
     _, params = _params(*_cfgs("h4kv2"))
     _, tbatch = _batch(cfg)
     loss0, _, g0 = _port_loss_and_grads(params, cfg, tbatch, remat="none")
-    loss1, _, g1 = _port_loss_and_grads(params, cfg, tbatch, remat="full")
-    assert float(loss0) == float(loss1)
-    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
-        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        _port_loss_and_grads(params, cfg, tbatch, remat="dots")
+    for remat in ("full", "dots"):
+        loss1, _, g1 = _port_loss_and_grads(params, cfg, tbatch, remat=remat)
+        assert float(loss0) == float(loss1)
+        for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+            torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+    with pytest.raises(ValueError, match="remat"):
+        _port_loss_and_grads(params, cfg, tbatch, remat="some")
 
 
 def _states(jcfg, cfg, jtcfg, tcfg, seed=0):
