@@ -18,17 +18,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    wholly masked row over 4096 slots), gemma2-2b's shapes (head_dim 256 on
    the CUDA-core design: its training shape and decode with window 4096 and
    softcap 50, a prefill where the window bites, a 4096-slot ring holding
-   positions past the window) and whisper-tiny's (its 1500-frame non-causal
-   encoder, the cross-attention over it at prefill and decode), each call
-   gated on the design it must take; and the autograd Function's gradients
-   against autograd through the plain version;
+   positions past the window), whisper-tiny's (its 1500-frame non-causal
+   encoder, the cross-attention over it at prefill and decode),
+   zamba2-1.2b's shared block (training and prefill: tile; decode:
+   split-KV), llama4-scout's training and prefill (tile, G 5) and decode
+   (split-KV), deepseek-v3's MLA prefill (qk dim 192, v zero-padded: the
+   CUDA-core design) and the ``--reduced`` deepseek and internvl2 runs'
+   shapes (head dims 24 and 16: CUDA-core; deepseek's MTP block at S - 1),
+   each call gated on the design it must take; and the autograd Function's
+   gradients against autograd through the plain version;
 4. the int8 codec kernels against their plain versions, bit for bit: the
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
    stacked leaf) and the int8_ef residual;
 5. the SSD scan kernels against the plain version, fp32 and bf16, y and
    the final state: the reference's kernel test cases, the mamba2 training
-   shape, the prefill shape (224 of 256 rows padding) and cases aimed at the
+   shape, the prefill shape (224 of 256 rows padding), zamba2-1.2b's
+   training and prefill shapes (64 heads, d_state 64) and cases aimed at the
    tensor-core design (two groups, an odd count of q tiles, n = 256, a
    misaligned slice that must take the CUDA-core kernel), each call gated
    on the design ``SSD.plan`` picks, the tensor-core kernel's distance to
@@ -70,15 +76,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     attention at gemma2-2b's training and decode shapes (yardsticks:
     ``flex_attention`` compiled with its softcap and window, and SDPA
     without the softcap, labelled so) and at
-    whisper-tiny's encoder and cross-attention decode (SDPA). The SSD scan's
-    two designs at the training and prefill shapes on the same inputs, and
-    the tensor-core kernel's fixed cost and cost per chunk;
+    whisper-tiny's encoder and cross-attention decode (SDPA), and at
+    zamba2's, llama4's and deepseek's new shapes (SDPA). The SSD scan's two
+    designs at mamba2's and zamba2's training and prefill shapes on the same
+    inputs, and the tensor-core kernel's fixed cost and cost per chunk;
 14. the paper's pipeline (``paper_pipeline``): the first LeNet-5 iteration
     of each mode (eager, ``torch.compile``d, compiled in place) at eight
     Table-1 corners against the port's eager iteration on the CPU (1e-4,
     fp32, TF32 off), one compiled graph per compiled mode; the sweep
     through ``repro_torch.launch.fit_perfmodel.main`` (90 eager trials,
-    then 4 in each compiled mode) with the generic model fitted by DE on
+    then 2 in each compiled mode) with the generic model fitted by DE on
     the card, the Table-2/3 constants, the scaling report and the RF/SVR
     comparison, launching no port kernel; the generic model fitted to the
     checked-in arch-sweep rows at the recorded budget, its train MAE within
@@ -111,7 +118,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 17. full-width whisper-tiny, the same sequence: its encoder runs once per
     request over the 1500 stub frames of ``make_batch_for``, then each
     decode step attends to its cache and, non-causally, to the encoder's
-    cross K/V (split-KV with a combine).
+    cross K/V (split-KV with a combine);
+18. full-width zamba2-1.2b (38 Mamba2 layers, one attention/MLP block
+    shared by its 6 groups), the same sequence: served (384 split-KV
+    launches, no SSD: decode is the recurrence), its prefill (6 flash and
+    38 SSD launches) held to the decode loop in fp32, trained under remat
+    "full" (every group recomputed whole: 12 flash and 76 SSD launches a
+    step, all tile and mma) with adamw and int8_ef; launches by design,
+    falling losses, peak memory under the card's;
+19. the MoE kinds at their published widths on a depth cut (the
+    registry's config replaced for the entry points): llama4-scout on 4 of
+    its 48 layers served (split-KV decode, tile prefill) and on 1 trained
+    with sgd and no codec; deepseek-v3 on 4 of its 61 (3 dense MLA layers
+    and one of 256 experts top-8, plus the MTP head) served, with no
+    launch at decode (MLA's absorbed form) and 4 CUDA-core launches at
+    prefill; the decode-vs-prefill gate at capacity factor E/k, which drops
+    no token. Then the same functions with ``--reduced``: deepseek trained
+    (its MTP loss reported every step, its aux loss positive, all finite,
+    the total falling) and internvl2 served (its decode loop held to a
+    prefill without patches, as serving feeds none) and trained (patches
+    prepended, their labels masked), each with exact launches. Every run
+    through an entry point checks that its report's ``param_count`` is the
+    config's handed to it.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -134,6 +162,7 @@ import types
 import unittest.mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()     # the phases print their start against it
 ARCH = "qwen2.5-3b"
 BATCH, PROMPT, GEN = 4, 32, 32
 TRAIN_ARCH = "smollm-360m"
@@ -181,7 +210,7 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -311,8 +340,10 @@ PIPELINE_TOL = 1e-4          # iteration on the card vs eager on the CPU, fp32
 COST_RTOL = 1e-5             # cost_fn on the card vs the CPU
 ARCH_MAE_BOUND = 1.25        # port's train MAE / the recorded one
 # Trials per mode of phase 14's sweep. A compiled mode compiles each config
-# (5-30 s a config on the card's host), so the compiled sweeps are short.
-SWEEP_TRIALS = {"eager": 90, "jit": 4, "jit_donate": 4}
+# (5-30 s a config on the card's host), so the compiled sweeps are short:
+# two trials each, which keep every gate and the whole run well inside its
+# time limit.
+SWEEP_TRIALS = {"eager": 90, "jit": 2, "jit_donate": 2}
 
 
 def paper_pipeline(torch, dev, card, reset_counts, read_counts):
@@ -788,6 +819,18 @@ LM_REMAT = "dots"
 # first, sign-like step: at the default 3e-4 its loss rose from 12.81 to
 # 16.11 on step 2 before it fell; at 3e-5 it falls on every step.
 LG_LR, ENCDEC_LR = 3e-5, 3e-4
+# Phase 18: zamba2-1.2b at full width, trained under remat "full" (the
+# reference's TrainConfig default: a group's six Mamba2 blocks and the
+# shared block recompute together) at gemma2's lr, its width being close.
+HYBRID_ARCH, HYBRID_LR, HYBRID_REMAT = "zamba2-1.2b", 3e-5, "full"
+# Phase 19: the MoE kinds at their published widths on a depth cut (the
+# registry's config replaced in the entry points), and at reduced size
+# through ``--reduced``. llama4 trains one layer with sgd and no codec:
+# 2 + 2 + 4 bytes a parameter of 4.27B fit; adamw + int8_ef would not.
+MOE_ARCH, MLA_ARCH, VLM_ARCH = ("llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                "internvl2-76b")
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS, MOE_TRAIN_LR = 4, 1, 1e-2
+REDUCED_SEQ, REDUCED_LR = 128, 3e-4
 
 
 def flash_designs(FA, q_shape, kv_shape, dtype):
@@ -802,110 +845,196 @@ def _add(acc, launches, times=1):
     return acc
 
 
-def _lm_setup(arch):
-    """(config, head_dim triple, encoder frames T, attention calls of one
-    decoder pass: self, plus whisper's cross)."""
-    from repro_torch.configs import get_config
-    full = get_config(arch)
-    encdec = full.is_encoder_decoder
-    return (full, (full.n_heads, full.n_kv_heads, full.get_head_dim()),
-            full.encoder_seq_len, full.n_layers * (2 if encdec else 1))
+def pass_work(MD, cfg, B, Sq, Skv, *, decode=False, train=False):
+    """One decoder pass of ``cfg``, from ``MD.build_segments``: its flash
+    attention calls [(q shape, kv shape)] and its SSD scan calls. Attention
+    reads Skv keys (a decode step's cache slots, a windowed cache's at most
+    its window; Sq at prefill and in training). whisper's cross-attention
+    reads the encoder's T frames, and in training, where the reference's
+    loss hands it none, the tokens. MLA attends at qk dim nope + rope with
+    Hkv = H at prefill and in training, and launches nothing at decode (the
+    absorbed form). Mamba2 blocks run the SSD scan at prefill and in
+    training, and the recurrence at decode."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.get_head_dim()
+    q = (B, Sq, hq, hd)
+
+    def kv(window=0, n=None):
+        n = n or (min(Skv, window) if decode and window else Skv)
+        return (B, n, hkv, hd)
+
+    flash, ssd = [], 0
+    for seg in MD.build_segments(cfg):
+        if seg.kind == "ssm":
+            ssd += 0 if decode else seg.n
+        elif seg.kind == "zamba_group":
+            ssd += 0 if decode else seg.n * seg.inner
+            flash += [(q, kv(seg.window))] * seg.n
+        elif seg.kind in ("mla_mlp", "mla_moe"):
+            qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+            flash += [] if decode else [((B, Sq, hq, qk), (B, Sq, hq, qk))] * seg.n
+        elif seg.kind == "lg_pair":
+            flash += [(q, kv(seg.window)), (q, kv())] * seg.n
+        else:                             # attn_mlp, attn_moe, dec_attn
+            flash += [(q, kv())] * seg.n
+            if seg.kind == "dec_attn":
+                flash += [(q, kv(n=Sq if train else cfg.encoder_seq_len))] * seg.n
+    return flash, ssd
 
 
-def lm_serve(torch, dev, card, arch, env, prefix):
-    """An LM at full width, served: (a) through ``launch.serve.main`` with
-    every kernel's launches counted, flash attention's by design; (b) the
-    decode loop against a prefill forward (an encoder-decoder encodes its
-    frames once for both), asserted in fp32 and reported in bf16, whose
-    decode steps are then profiled. Returns ({path: kernel counts}, {path:
-    flash launches by design}), each path named ``prefix`` + serve or
+def designs_of(FA, calls, dtype, times=1):
+    acc = {}
+    for q, kv in calls:
+        _add(acc, flash_designs(FA, q, kv, dtype), times)
+    return acc
+
+
+def _no_drop(cfg):
+    """``cfg`` with capacity factor E/k, so C = T: no token is dropped."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _lm_config(arch, n_layers=None, reduced_size=False):
+    """The config the entry points run for ``arch``: the registry's, cut to
+    ``n_layers`` if given, or ``reduced`` for ``reduced_size``; a context
+    that hands a cut config to the entry points (which read the registry
+    when called) while it is open; their extra arguments; and a label.
+    lm_serve and lm_train fail if a report's ``param_count`` is not this
+    config's, so a cut that stops applying is seen."""
+    import repro_torch.configs as CF
+    full = CF.get_config(arch)
+    if reduced_size:
+        return CF.reduced(full), contextlib.nullcontext(), ["--reduced"], " --reduced"
+    if n_layers is None:
+        return full, contextlib.nullcontext(), [], " at full width"
+    cut = dataclasses.replace(full, n_layers=n_layers)
+    real = CF.get_config
+    return (cut, unittest.mock.patch.object(
+        CF, "get_config", lambda a: cut if a == arch else real(a)), [],
+        f" at full width ({n_layers} of {full.n_layers} layers)")
+
+
+def _check_param_count(report, cfg, what):
+    if report["param_count"] != cfg.param_count():
+        fail(f"{what} ran a config of {report['param_count']} parameters, expected "
+             f"{cfg.param_count()}: the config handed to the entry point did not apply")
+
+
+def lm_serve(torch, dev, card, arch, env, prefix, n_layers=None, reduced_size=False):
+    """An LM at full width (``n_layers`` cuts its depth) or ``--reduced``
+    (``reduced_size``), served: (a) through ``launch.serve.main`` with every
+    kernel's launches counted, flash attention's and the SSD scan's by
+    design; (b) the decode loop against a prefill forward (an
+    encoder-decoder encodes its frames once for both; an MoE routes at
+    capacity factor E/k there, so neither path drops a token; the vision
+    stub's prefill gets no patches, as the decode loop gets none), asserted
+    in fp32 and reported in bf16, whose decode steps are then profiled.
+    Returns ({path: kernel counts}, {path: flash launches by design}, {path:
+    SSD launches by design}), each path named ``prefix`` + serve or
     prefill_check_<dtype>."""
-    import dataclasses
-
     from repro_torch.data import make_batch_for
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import serve
     from repro_torch.models import model as MD
 
-    full, (hq, hkv, hd), T, per_pass = _lm_setup(arch)
+    full, registry, extra, cut = _lm_config(arch, n_layers, reduced_size)
     encdec = full.is_encoder_decoder
-    cap = PROMPT + GEN
+    T, cap = full.encoder_seq_len, PROMPT + GEN
+    hq, hkv, hd = full.n_heads, full.n_kv_heads, full.get_head_dim()
     bf16 = torch.bfloat16
-    counts, designs = {}, {}
-
-    def decoder_designs(Sq, Skv, dtype, times=1):
-        # every self-attention cache holds cap slots here (gemma2's local
-        # ring is min(cap, window)); whisper's cross-attention reads T
-        out = _add({}, flash_designs(FA, (BATCH, Sq, hq, hd),
-                                     (BATCH, Skv, hkv, hd), dtype), full.n_layers * times)
-        if encdec:
-            _add(out, flash_designs(FA, (BATCH, Sq, hq, hd), (BATCH, T, hkv, hd),
-                                    dtype), full.n_layers * times)
-        return out
-
-    def encoder_designs(dtype):
-        return _add({}, flash_designs(FA, (BATCH, T, hq, hd), (BATCH, T, hkv, hd),
-                                      dtype), full.n_encoder_layers) if encdec else {}
+    counts, designs, ssd_designs = {}, {}, {}
+    enc_calls = [((BATCH, T, hq, hd), (BATCH, T, hkv, hd))] * (
+        full.n_encoder_layers if encdec else 0)
 
     # ---- (a) serve -----------------------------------------------------------
-    phase(f"serve {arch} at full width (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
+    phase(f"serve {arch}{cut} (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
-    served = serve.main(["--arch", arch, "--batch", str(BATCH), "--prompt-len",
-                         str(PROMPT), "--gen", str(GEN), "--device", "cuda"])
-    got, got_designs = env.read_counts(), env.read_variants()
-    want = {k: 0 for k in got}
-    want["flash_attention"] = cap * per_pass + (full.n_encoder_layers if encdec else 0)
+    with registry:
+        served = serve.main(["--arch", arch, *extra, "--batch", str(BATCH), "--prompt-len",
+                             str(PROMPT), "--gen", str(GEN), "--device", "cuda"])
+    got, got_designs, got_ssd = env.read_counts(), env.read_variants(), env.read_ssd_variants()
     rep = served.report
+    _check_param_count(rep, full, f"{arch} serve")
+    # the decode loop runs over the prompt's tokens (the vision stub's prompt
+    # is cut to the tokens left beside its patches) and GEN more
+    served_cap = rep["prompt_len"] + GEN
+    step_calls, _ = pass_work(MD, full, BATCH, 1, served_cap, decode=True)
+    want = {k: 0 for k in got}
+    want["flash_attention"] = served_cap * len(step_calls) + len(enc_calls)
     print(f"  launches {got} (expected {want}); prefill_s {rep['prefill_s']} decode_s "
           f"{rep['decode_s']} decode_tok_per_s {rep['decode_tok_per_s']} encode_s "
-          f"{rep.get('encode_s')} peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+          f"{rep.get('encode_s')} param_count {rep['param_count']} tree_params "
+          f"{rep['tree_params']} peak_mem_GB {torch.cuda.max_memory_allocated() / 1e9:.2f}; "
           f"card {card}", flush=True)
     if got != want:
         fail(f"{arch} serve launched the kernels {got}, expected {want}")
     env.gate_variants(f"{arch} serve", got_designs,
-                      **_add(encoder_designs(bf16), decoder_designs(1, cap, bf16), cap))
+                      **_add(designs_of(FA, enc_calls, bf16), designs_of(FA, step_calls, bf16),
+                             served_cap))
+    env.gate_ssd_variants(f"{arch} serve", got_ssd)
     if not torch.isfinite(served.logits.float()).all():
         fail(f"{arch} serve produced non-finite logits")
     if served.tokens.shape != (BATCH, GEN) or not (
             (served.tokens >= 0) & (served.tokens < full.vocab_size)).all():
         fail(f"{arch} serve tokens out of range or shape {tuple(served.tokens.shape)}")
     counts[f"{prefix}serve"], designs[f"{prefix}serve"] = got, got_designs
+    ssd_designs[f"{prefix}serve"] = got_ssd
     del served
+    torch.cuda.empty_cache()
 
     # ---- (b) decode loop against prefill -------------------------------------
     # fp32 weights, activations and caches hold the decode path (kernel at
-    # Sq=1 over the cache) to the prefill path (kernel at Sq=32); the logits
-    # are bf16 either way (logits_fn), so the bf16 tolerance applies. The
-    # served bf16 model is run the same way and its difference printed: its
-    # layers of bf16 rounding, in GEMV and GEMM orders, move the logits by
-    # several bf16 ulps, so it is reported, not asserted.
-    phase(f"{arch} decode loop vs prefill forward at full width")
+    # Sq=1 over the cache, or MLA's absorbed form) to the prefill path
+    # (kernel at Sq=32, the SSD scan over the prompt); the logits are bf16
+    # either way (logits_fn), so the bf16 tolerance applies. The served bf16
+    # model is run the same way and its difference printed: its layers of
+    # bf16 rounding, in GEMV and GEMM orders, move the logits by several bf16
+    # ulps, so it is reported, not asserted. An MoE routes B tokens a decode
+    # step and B·S at prefill, so at its own capacity factor a decode step
+    # drops tokens the prefill keeps: both run at C = T here.
+    moe_note = (f" (MoE at capacity factor {full.moe.n_experts}/{full.moe.top_k}: "
+                f"no token dropped)" if full.moe else "")
+    phase(f"{arch} decode loop vs prefill forward{cut}{moe_note}")
     batch = make_batch_for(full, BATCH, PROMPT)
     prompt = batch["tokens"].to(dev)
+    S = prompt.shape[1]
+    pre_batch = {"tokens": prompt}
+    if full.frontend == "vision_patch_stub":
+        pre_batch["patches"] = torch.zeros(BATCH, 0, full.d_model, device=dev)
+    pre_calls, pre_ssd = pass_work(MD, full, BATCH, S, S)
     for dname in ("float32", "bfloat16"):
-        cfg = dataclasses.replace(full, dtype=dname, param_dtype=dname)
+        cfg = _no_drop(dataclasses.replace(full, dtype=dname, param_dtype=dname))
         dtype = MD.dtype_of(cfg)
         with torch.inference_mode():
             params = MD.init_model(cfg, seed=0, device=dev)
             enc_kv = MD.encode(params, cfg, batch["frames"].to(dev)) if encdec else None
             caches = MD.init_decode_caches(cfg, BATCH, cap, dtype=dtype, device=dev)
-            for pos in range(PROMPT):
+            for pos in range(S):
                 dec, caches = MD.decode_step(params, cfg, caches, prompt[:, pos:pos + 1],
                                              pos, enc_kv=enc_kv)
             torch.cuda.synchronize()
             env.reset_counts()
-            pre, _ = MD.prefill(params, cfg, {"tokens": prompt}, enc_kv=enc_kv)
+            pre, _ = MD.prefill(params, cfg, pre_batch, enc_kv=enc_kv)
             torch.cuda.synchronize()
-            pre_counts, pre_designs = env.read_counts(), env.read_variants()
+            pre_counts = env.read_counts()
+            pre_designs, pre_ssd_designs = env.read_variants(), env.read_ssd_variants()
         want = {k: 0 for k in pre_counts}
-        want["flash_attention"] = per_pass
+        want["flash_attention"], want["ssd_scan"] = len(pre_calls), pre_ssd
         if pre_counts != want:
             fail(f"{arch} {dname} prefill launched the kernels {pre_counts}, expected {want}")
         env.gate_variants(f"{arch} {dname} prefill", pre_designs,
-                          **decoder_designs(PROMPT, PROMPT, dtype))
+                          **designs_of(FA, pre_calls, dtype))
+        # the model paths' SSD shapes (head_dim 64, d_state 64 or 128, aligned
+        # rows) take the tensor-core kernel in bf16, the CUDA-core one in fp32
+        ssd_design = "mma" if dname == "bfloat16" else "cuda_core"
+        env.gate_ssd_variants(f"{arch} {dname} prefill", pre_ssd_designs,
+                              **({ssd_design: pre_ssd} if pre_ssd else {}))
         counts[f"{prefix}prefill_check_{dname}"] = pre_counts
         designs[f"{prefix}prefill_check_{dname}"] = pre_designs
+        ssd_designs[f"{prefix}prefill_check_{dname}"] = pre_ssd_designs
         err = (dec.float() - pre.float()).abs().max().item()
         ok = torch.allclose(dec.float(), pre.float(), atol=TOL["bfloat16"],
                             rtol=TOL["bfloat16"])
@@ -913,11 +1042,12 @@ def lm_serve(torch, dev, card, arch, env, prefix):
         verdict = ("ok" if ok else "FAIL") if dname == "float32" else "reported"
         print(f"  {dname:8s} last-position logits max_abs_err={err:.3e} (max |logit| "
               f"{pre.float().abs().max().item():.3f}) tol={TOL['bfloat16']:g} argmax "
-              f"agreement {agree:.2f} {verdict}", flush=True)
+              f"agreement {agree:.2f} {verdict}; peak_mem_GB "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f}", flush=True)
         if dname == "float32" and not ok:
             fail(f"{arch} decode logits disagree with prefill: max_abs_err={err}")
         if dname == "bfloat16":
-            tok, at = dec.argmax(-1)[:, None], [PROMPT]
+            tok, at = dec.argmax(-1)[:, None], [S]
 
             def decode_one():
                 nonlocal caches
@@ -925,22 +1055,42 @@ def lm_serve(torch, dev, card, arch, env, prefix):
                 at[0] += 1
 
             with torch.inference_mode():
-                profile_steps(torch, decode_one, 4, f"{arch} decode step at full width, "
-                              f"bf16, batch {BATCH}", card)
+                profile_steps(torch, decode_one, 4, f"{arch} decode step{cut}, bf16, "
+                              f"batch {BATCH}", card)
         del params, caches, enc_kv, dec, pre
         torch.cuda.empty_cache()
-    return counts, designs
+    return counts, designs, ssd_designs
 
 
-def lm_train(torch, dev, card, arch, env, prefix, lr, remat):
-    """An LM at full width, trained: (c) through ``launch.train.main`` (8
-    steps of adamw at ``lr`` with int8_ef under ``remat``) with every
-    kernel's launches counted, flash attention's by design, losses finite
-    and falling, the peak memory under the card's; (d) one train step of
-    the same kind profiled. Returns ({path: kernel counts}, {path: flash
-    launches by design}), the path named ``prefix`` + train."""
-    import dataclasses
+def _train_work(MD, FA, cfg, B, S, remat, dtype, steps):
+    """Flash launches by design, flash calls and SSD calls of ``steps``
+    training steps: every block's forward once, and again in the
+    backward's recompute under remat "full" or "dots"; an MTP head's block
+    once a step (it runs under no remat), at S - 1 positions."""
+    passes = 1 if remat == "none" else 2
+    calls, ssd = pass_work(MD, cfg, B, S, S, train=True)
+    designs = designs_of(FA, calls, dtype, steps * passes)
+    n_calls, n_ssd = steps * passes * len(calls), steps * passes * ssd
+    if cfg.mtp_depth:
+        mtp, _ = pass_work(MD, dataclasses.replace(cfg, n_layers=1, moe=None), B, S - 1,
+                           S - 1, train=True)
+        _add(designs, designs_of(FA, mtp, dtype, steps))
+        n_calls += steps * len(mtp)
+    return designs, n_calls, n_ssd
 
+
+def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw",
+             compression="int8_ef", n_layers=None, reduced_size=False):
+    """An LM at full width (``n_layers`` cuts its depth) or ``--reduced``
+    (``reduced_size``, at sequence REDUCED_SEQ), trained: (c) through
+    ``launch.train.main`` (8 steps of ``optimizer`` at ``lr`` with
+    ``compression`` under ``remat``) with every kernel's launches counted,
+    flash attention's and the SSD scan's by design, losses finite and
+    falling, an MoE's aux loss finite and positive, an MTP head's loss
+    reported every step and finite, the peak memory under the card's; (d)
+    one train step of the same kind profiled. Returns ({path: kernel
+    counts}, {path: flash launches by design}, {path: SSD launches by
+    design}), the path named ``prefix`` + train."""
     import numpy as np
     from repro_torch.configs import TrainConfig, reduced
     from repro_torch.data import make_batch_for
@@ -950,49 +1100,56 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat):
     from repro_torch.train import step as TS
     from repro_torch.tree import reference_leaves
 
-    full, (hq, hkv, hd), _, per_pass = _lm_setup(arch)
+    full, registry, extra, cut = _lm_config(arch, n_layers, reduced_size)
+    seq = REDUCED_SEQ if reduced_size else TRAIN_SEQ
 
     # ---- (c) train ------------------------------------------------------------
-    phase(f"train {arch} at full width (batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, "
-          f"{TRAIN_STEPS} steps, adamw lr {lr:g}, int8_ef, remat {remat})")
+    phase(f"train {arch}{cut} (batch {TRAIN_BATCH}, seq {seq}, "
+          f"{TRAIN_STEPS} steps, {optimizer} lr {lr:g}, {compression}, remat {remat})")
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
-    trained = train.main(["--arch", arch, "--batch", str(TRAIN_BATCH), "--seq",
-                          str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--optimizer",
-                          "adamw", "--lr", str(lr), "--compression", "int8_ef",
-                          "--remat", remat, "--device", "cuda", "--log-every", "1"])
+    with registry:
+        trained = train.main(["--arch", arch, *extra, "--batch", str(TRAIN_BATCH), "--seq",
+                              str(seq), "--steps", str(TRAIN_STEPS), "--optimizer",
+                              optimizer, "--lr", str(lr), "--compression", compression,
+                              "--remat", remat, "--device", "cuda", "--log-every", "1"])
     peak = torch.cuda.max_memory_allocated()
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
-    got, got_designs = env.read_counts(), env.read_variants()
-    # Every block's attention runs once in the forward (its backward is the
-    # plain version's), and again in the backward's recompute under "full"
-    # or "dots"; whisper's training loss runs no encoder (the reference's
-    # hands the decoder no cross K/V). The codec: one launch of each kernel
-    # per parameter tensor per step, the tensors grouped into the
-    # reference's leaves (the tree from a narrow model of the same depth).
-    passes = 1 if remat == "none" else 2
+    got, got_designs, got_ssd = env.read_counts(), env.read_variants(), env.read_ssd_variants()
+    # The codec: one launch of each kernel per parameter tensor per step, the
+    # tensors grouped into the reference's leaves (the tree from a narrow
+    # model of the same depth).
     skeleton = MD.init_model(dataclasses.replace(
         reduced(full), n_layers=full.n_layers, n_encoder_layers=full.n_encoder_layers),
         seed=0, device="cpu")
     groups = reference_leaves(skeleton)
     n_tensors = sum(len(idx) for _, idx in groups)
+    # a vision stub's sequence is its patches and the tokens left beside them
+    step_designs, n_flash, n_ssd = _train_work(MD, FA, full, TRAIN_BATCH, seq,
+                                               remat, torch.bfloat16, TRAIN_STEPS)
     want = {k: 0 for k in got}
-    want["flash_attention"] = TRAIN_STEPS * passes * per_pass
-    for k in ("quantize_absmax", "quantize_int8", "dequantize_int8"):
-        want[k] = TRAIN_STEPS * n_tensors
-    step_designs = _add({}, flash_designs(FA, (TRAIN_BATCH, TRAIN_SEQ, hq, hd),
-                                          (TRAIN_BATCH, TRAIN_SEQ, hkv, hd), torch.bfloat16),
-                        TRAIN_STEPS * passes * per_pass)
-    losses = trained["losses"]
+    want["flash_attention"], want["ssd_scan"] = n_flash, n_ssd
+    if compression != "none":
+        for k in ("quantize_absmax", "quantize_int8", "dequantize_int8"):
+            want[k] = TRAIN_STEPS * n_tensors
+    losses, aux, mtp = trained["losses"], trained["aux"], trained.get("mtp_ce", [])
     print(f"  launches {got} (expected {want}: {n_tensors} parameter tensors in "
           f"{len(groups)} reference leaves); step_ms {trained['step_ms']} tokens_per_s "
           f"{trained['tokens_per_s']} peak_mem_GB {peak / 1e9:.2f} of {card_bytes / 1e9:.2f}; "
-          f"losses {[round(x, 3) for x in losses]}; card {card}", flush=True)
+          f"param_count {trained['param_count']} tree_params {trained['tree_params']}; "
+          f"losses {[round(x, 3) for x in losses]}; aux {[round(x, 6) for x in aux]}; "
+          f"mtp_ce {[round(x, 3) for x in mtp]}; card {card}", flush=True)
+    _check_param_count(trained, full, f"{arch} train")
     if got != want:
         fail(f"{arch} train launched the kernels {got}, expected {want}")
     env.gate_variants(f"{arch} train", got_designs, **step_designs)
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        fail(f"{arch} train losses not finite: {losses}")
+    env.gate_ssd_variants(f"{arch} train", got_ssd, **({"mma": n_ssd} if n_ssd else {}))
+    if full.mtp_depth and len(mtp) != TRAIN_STEPS:
+        fail(f"{arch} train reported no MTP loss every step: {mtp}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + aux + mtp)):
+        fail(f"{arch} train losses not finite: {losses}, aux {aux}, mtp_ce {mtp}")
+    if full.moe and not all(a > 0 for a in aux):
+        fail(f"{arch} train has no aux loss: {aux}")
     if not losses[-1] < losses[0]:
         fail(f"{arch} train loss did not fall: {losses}")
     if not peak < card_bytes:
@@ -1001,23 +1158,24 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat):
     torch.cuda.empty_cache()
 
     # ---- (d) a profiled train step: launch.train's step ---------------------------
-    tcfg = TrainConfig(optimizer="adamw", learning_rate=lr, grad_compression="int8_ef",
+    tcfg = TrainConfig(optimizer=optimizer, learning_rate=lr, grad_compression=compression,
                        remat_policy=remat, total_steps=TRAIN_STEPS,
                        warmup_steps=TRAIN_STEPS // 10)
     holder = [TS.init_train_state(full, tcfg, seed=0, device=dev)]
     tbatch = {k: v.to(dev) for k, v in make_batch_for(
-        full, TRAIN_BATCH, TRAIN_SEQ, step=0).items()}
+        full, TRAIN_BATCH, seq, step=0).items()}
     step_fn = TS.make_train_step(full, tcfg)
 
     def train_one():
         holder[0], _ = step_fn(holder[0], tbatch)
 
-    profile_steps(torch, train_one, 2, f"{arch} train step at full width, bf16, batch "
-                  f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, adamw + int8_ef, remat {remat}",
-                  card)
+    profile_steps(torch, train_one, 2, f"{arch} train step{cut}, bf16, "
+                  f"batch {TRAIN_BATCH} x seq {seq}, {optimizer} + {compression}, "
+                  f"remat {remat}", card)
     del holder, tbatch, step_fn
     torch.cuda.empty_cache()
-    return {f"{prefix}train": got}, {f"{prefix}train": got_designs}
+    path = f"{prefix}train"
+    return {path: got}, {path: got_designs}, {path: got_ssd}
 
 
 def main() -> None:
@@ -1079,7 +1237,9 @@ def main() -> None:
             fail(f"{what} launched the flash attention designs {got}, expected {want}")
 
     env = types.SimpleNamespace(reset_counts=reset_counts, read_counts=read_counts,
-                                read_variants=read_variants, gate_variants=gate_variants)
+                                read_variants=read_variants, gate_variants=gate_variants,
+                                read_ssd_variants=read_ssd_variants,
+                                gate_ssd_variants=gate_ssd_variants)
 
     # ---- 1. environment ---------------------------------------------------
     phase("environment")
@@ -1219,6 +1379,50 @@ def main() -> None:
     cases.append((f"whisper_cross_decode{t_enc}", (BATCH, 1, t_enc, *w_heads),
                   arange(PROMPT, PROMPT + 1), arange(0, t_enc), AttnSpec(causal=False),
                   "split_kv"))
+    # zamba2-1.2b's shared block (32 heads of 64, G 1, window 4096): the
+    # training shape (Sq·G = 512: tile) and decode over the served 64-slot
+    # cache (split-KV). llama4-scout (40 q over 8 kv heads of 128, G 5): its
+    # prefill (Sq·G = 160: tile) and decode (G = 5: split-KV). deepseek-v3's
+    # MLA prefill: 128 heads at qk dim 192, v zero-padded to 192, Hkv = H;
+    # 192 is not a tensor-core head dim, so the CUDA-core design.
+    zfull, lfull, dfull = get_config(HYBRID_ARCH), get_config(MOE_ARCH), get_config(MLA_ARCH)
+    z_heads = (zfull.n_heads, zfull.n_kv_heads, zfull.get_head_dim())
+    l_heads = (lfull.n_heads, lfull.n_kv_heads, lfull.get_head_dim())
+    d_qk = dfull.mla.qk_nope_head_dim + dfull.mla.qk_rope_head_dim
+    d_heads = (dfull.n_heads, dfull.n_heads, d_qk)
+    z_spec = AttnSpec(causal=True, window=zfull.attn_window)
+    cases.append((f"zamba2_train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *z_heads),
+                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), z_spec, "tile"))
+    cases.append((f"zamba2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *z_heads),
+                  *tail_pos(1, PROMPT + GEN), z_spec, "split_kv"))
+    cases.append((f"llama4_prefill{PROMPT}", (BATCH, PROMPT, PROMPT, *l_heads),
+                  *tail_pos(PROMPT, PROMPT), AttnSpec(), "tile"))
+    cases.append((f"llama4_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *l_heads),
+                  *tail_pos(1, PROMPT + GEN), AttnSpec(), "split_kv"))
+    cases.append((f"deepseek_mla_prefill{PROMPT}", (BATCH, PROMPT, PROMPT, *d_heads),
+                  *tail_pos(PROMPT, PROMPT), AttnSpec(), "cuda_core"))
+    # Every other shape these paths launch: llama4's one-layer training
+    # (Sq·G = 2560: tile), zamba2's shared block at prefill (tile, under its
+    # window), and the --reduced runs' shapes, whose head dims (24, 16) take
+    # the CUDA-core design: deepseek's MLA training at S and its MTP block at
+    # S - 1, internvl2's training over patches and tokens and its decode over
+    # the tokens left beside the patches plus GEN.
+    rd, rv = reduced(get_config(MLA_ARCH)), reduced(get_config(VLM_ARCH))
+    rd_heads = (rd.n_heads, rd.n_heads, rd.mla.qk_nope_head_dim + rd.mla.qk_rope_head_dim)
+    rv_heads = (rv.n_heads, rv.n_kv_heads, rv.get_head_dim())
+    rv_cap = max(PROMPT - rv.n_frontend_tokens, 1) + GEN
+    cases.append((f"llama4_train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *l_heads),
+                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), AttnSpec(causal=True), "tile"))
+    cases.append((f"zamba2_prefill{PROMPT}", (BATCH, PROMPT, PROMPT, *z_heads),
+                  *tail_pos(PROMPT, PROMPT), z_spec, "tile"))
+    for S in (REDUCED_SEQ, REDUCED_SEQ - 1):
+        cases.append((f"deepseek_reduced_train{S}", (TRAIN_BATCH, S, S, *rd_heads),
+                      *tail_pos(S, S), AttnSpec(causal=True), "cuda_core"))
+    cases.append((f"internvl2_reduced_train{REDUCED_SEQ}",
+                  (TRAIN_BATCH, REDUCED_SEQ, REDUCED_SEQ, *rv_heads),
+                  *tail_pos(REDUCED_SEQ, REDUCED_SEQ), AttnSpec(causal=True), "cuda_core"))
+    cases.append((f"internvl2_reduced_decode_cap{rv_cap}", (BATCH, 1, rv_cap, *rv_heads),
+                  *tail_pos(1, rv_cap), AttnSpec(), "cuda_core"))
 
     path_err = None
     designs_seen = collections.Counter()
@@ -1370,6 +1574,13 @@ def main() -> None:
                  ms.d_state, ms.chunk_size)
     ssd_prefill = (BATCH, ms.chunk_size, m_heads, ms.head_dim, ms.n_groups,
                    ms.d_state, ms.chunk_size)
+    # zamba2-1.2b's Mamba2 layers: 64 heads of 64 (expand 2 x 2048), d_state 64
+    zs = get_config(HYBRID_ARCH).ssm
+    z_ssd_heads = zs.expand * get_config(HYBRID_ARCH).d_model // zs.head_dim
+    zssd_train = (TRAIN_BATCH, TRAIN_SEQ, z_ssd_heads, zs.head_dim, zs.n_groups,
+                  zs.d_state, zs.chunk_size)
+    zssd_prefill = (BATCH, zs.chunk_size, z_ssd_heads, zs.head_dim, zs.n_groups,
+                    zs.d_state, zs.chunk_size)
 
     def ssd_inputs(b, l, h, p, g, n, chunk, dtype, real=None, pad=0):
         """x, dt, A, B, C, D scaled as the reference's kernel tests. x, B and
@@ -1406,6 +1617,9 @@ def main() -> None:
                  + [(f"train{list(ssd_train)}", ssd_train, None, 0, "mma"),
                     (f"prefill{list(ssd_prefill)} {PROMPT} real", ssd_prefill, PROMPT,
                      0, "mma"),
+                    (f"zamba2_train{list(zssd_train)}", zssd_train, None, 0, "mma"),
+                    (f"zamba2_prefill{list(zssd_prefill)} {PROMPT} real", zssd_prefill,
+                     PROMPT, 0, "mma"),
                     ("mma_groups", (2, 128, 4, 32, 2, 64, 64), None, 0, "mma"),
                     ("mma_odd_q_tiles", (1, 96, 2, 128, 1, 16, 48), None, 0, "mma"),
                     ("mma_n256", (2, 256, 4, 64, 1, 256, 128), None, 0, "mma"),
@@ -1486,13 +1700,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 6-7. full-width serve; decode against prefill ---------------------
-    lm_counts, lm_designs = lm_serve(torch, dev, card, ARCH, env, "")
+    lm_counts, lm_designs, lm_ssd = lm_serve(torch, dev, card, ARCH, env, "")
 
     # ---- 8. full-width training; a profiled train step ---------------------
-    got, got_designs = lm_train(torch, dev, card, TRAIN_ARCH, env, "",
-                                TrainConfig().learning_rate, "none")
-    lm_counts.update(got)
-    lm_designs.update(got_designs)
+    for acc, got in zip((lm_counts, lm_designs, lm_ssd),
+                        lm_train(torch, dev, card, TRAIN_ARCH, env, "",
+                                 TrainConfig().learning_rate, "none")):
+        acc.update(got)
 
     # ---- 9. compress_tree on full-width grads ------------------------------
     phase("compress_tree on full-width grads vs plain")
@@ -1781,8 +1995,11 @@ def main() -> None:
               f"({n_bytes} B, {n_ops} flop); card {card}", flush=True)
         del q, k, v, ref, qt, kt, vt, mask
 
-    # Flash attention at gemma2-2b's and whisper-tiny's shapes, each beside its
-    # bound and yardstick. whisper's encoder and cross-attention decode are
+    # Flash attention at gemma2-2b's, whisper-tiny's, zamba2-1.2b's shared
+    # block's, llama4-scout's and deepseek-v3's MLA prefill shapes, each beside
+    # its bound and yardstick (SDPA wherever there is no softcap; zamba2's
+    # window does not bite at these lengths, and MLA's v is the zero-padded
+    # one at qk dim 192). whisper's encoder and cross-attention decode are
     # SDPA's own function (no mask). SDPA cannot apply gemma2's softcap, so its
     # SDPA time is of the function without it ("sdpa_no_softcap_ms", is_causal;
     # the 4096 window does not bite at these lengths), and its library call is
@@ -1814,7 +2031,21 @@ def main() -> None:
             (f"whisper_encoder{t_enc}", (BATCH, t_enc, t_enc), w_heads,
              AttnSpec(causal=False), (arange(0, t_enc), arange(0, t_enc))),
             (f"whisper_cross_decode{t_enc}", (BATCH, 1, t_enc), w_heads,
-             AttnSpec(causal=False), (arange(PROMPT, PROMPT + 1), arange(0, t_enc)))):
+             AttnSpec(causal=False), (arange(PROMPT, PROMPT + 1), arange(0, t_enc))),
+            (f"zamba2_train{TRAIN_SEQ}", t_dims, z_heads, z_spec,
+             tail_pos(TRAIN_SEQ, TRAIN_SEQ)),
+            (f"zamba2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN), z_heads, z_spec,
+             tail_pos(1, PROMPT + GEN)),
+            (f"llama4_prefill{PROMPT}", (BATCH, PROMPT, PROMPT), l_heads, AttnSpec(),
+             tail_pos(PROMPT, PROMPT)),
+            (f"llama4_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN), l_heads,
+             AttnSpec(), tail_pos(1, PROMPT + GEN)),
+            (f"deepseek_mla_prefill{PROMPT}", (BATCH, PROMPT, PROMPT), d_heads, AttnSpec(),
+             tail_pos(PROMPT, PROMPT)),
+            (f"llama4_train{TRAIN_SEQ}", t_dims, l_heads, AttnSpec(causal=True),
+             tail_pos(TRAIN_SEQ, TRAIN_SEQ)),
+            (f"zamba2_prefill{PROMPT}", (BATCH, PROMPT, PROMPT), z_heads, z_spec,
+             tail_pos(PROMPT, PROMPT))):
         q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
@@ -1920,8 +2151,8 @@ def main() -> None:
               f"{r['bound_ms']:.6f} ms by {bound_by} ({n_bytes} B, {n_ops} op); "
               f"card {card}", flush=True)
 
-    # The SSD kernels at the mamba2 training shape and the prefill check's
-    # padded shape, bf16: the design the path takes (``plan``: mma) and the
+    # The SSD kernels at the mamba2 and zamba2 training shapes and the
+    # prefill checks' padded shapes, bf16: the design the path takes (``plan``: mma) and the
     # CUDA-core kernel on the same inputs, timed in turns (mma, CUDA-core,
     # CUDA-core, mma; each design's time is the mean of its two medians).
     # Bytes: each input read once, y and the state written once. Operations:
@@ -1934,7 +2165,9 @@ def main() -> None:
     ssd_regs = {d: next(v for k, v in ptxas.items() if sub in k)
                 for d, sub in ssd_entry.items()}
     for label, case, real in (("ssd_train", ssd_train, None),
-                              ("ssd_prefill", ssd_prefill, PROMPT)):
+                              ("ssd_prefill", ssd_prefill, PROMPT),
+                              ("zamba2_ssd_train", zssd_train, None),
+                              ("zamba2_ssd_prefill", zssd_prefill, PROMPT)):
         b, l, h, p, g, n, Q = case
         ins = ssd_inputs(*case, torch.bfloat16, real=real)
         if ssd_design(ins, Q) != "mma":
@@ -2012,12 +2245,33 @@ def main() -> None:
         shutdown_compile_workers()
 
     # ---- 16. gemma2-2b, 17. whisper-tiny ----------------------------------------
+    def lm_paths(*results):
+        for result in results:
+            for acc, got in zip((lm_counts, lm_designs, lm_ssd), result):
+                acc.update(got)
+
     for arch, lr in ((LG_ARCH, LG_LR), (ENCDEC_ARCH, ENCDEC_LR)):
-        for got, got_designs in (lm_serve(torch, dev, card, arch, env, f"{arch}_"),
-                                 lm_train(torch, dev, card, arch, env, f"{arch}_",
-                                          lr, LM_REMAT)):
-            lm_counts.update(got)
-            lm_designs.update(got_designs)
+        lm_paths(lm_serve(torch, dev, card, arch, env, f"{arch}_"),
+                 lm_train(torch, dev, card, arch, env, f"{arch}_", lr, LM_REMAT))
+
+    # ---- 18. zamba2-1.2b at full width ------------------------------------------
+    lm_paths(lm_serve(torch, dev, card, HYBRID_ARCH, env, "zamba2_"),
+             lm_train(torch, dev, card, HYBRID_ARCH, env, "zamba2_", HYBRID_LR,
+                      HYBRID_REMAT))
+
+    # ---- 19. the MoE kinds at published widths on a depth cut; reduced runs -----
+    lm_paths(lm_serve(torch, dev, card, MOE_ARCH, env, "llama4_",
+                      n_layers=MOE_SERVE_LAYERS),
+             lm_train(torch, dev, card, MOE_ARCH, env, "llama4_", MOE_TRAIN_LR, "none",
+                      optimizer="sgd", compression="none", n_layers=MOE_TRAIN_LAYERS),
+             lm_serve(torch, dev, card, MLA_ARCH, env, "deepseek_",
+                      n_layers=MOE_SERVE_LAYERS),
+             lm_train(torch, dev, card, MLA_ARCH, env, f"{MLA_ARCH}_reduced_", REDUCED_LR,
+                      "full", reduced_size=True),
+             lm_serve(torch, dev, card, VLM_ARCH, env, f"{VLM_ARCH}_reduced_",
+                      reduced_size=True),
+             lm_train(torch, dev, card, VLM_ARCH, env, f"{VLM_ARCH}_reduced_", REDUCED_LR,
+                      "full", reduced_size=True))
 
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
@@ -2043,7 +2297,8 @@ def main() -> None:
         "library_ms": path["library_ms"],
         "rows": {k: r for k, r in rows.items()
                  if k.startswith(("decode_", "prefill", "train", "tile_cost",
-                                  "gemma2_", "whisper_"))},
+                                  "gemma2_", "whisper_", "zamba2_", "llama4_",
+                                  "deepseek_")) and "ssd" not in k},
     }]
     for name, line in (("quantize_absmax", 92), ("quantize_int8", 101),
                        ("dequantize_int8", 120)):
@@ -2068,7 +2323,7 @@ def main() -> None:
         "launches_by_path": by_path("ssd_scan"),
         "launches_by_design": {"mamba2_serve": mserve_ssd, "mamba2_train": mtrain_ssd,
                                **{f"mamba2_prefill_check_{k}": v
-                                  for k, v in prefill_ssd.items()}},
+                                  for k, v in prefill_ssd.items()}, **lm_ssd},
         "max_abs_err": ssd_err, "max_abs_err_vs_mma_plain": ssd_mma_gap,
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2079,6 +2334,7 @@ def main() -> None:
                     for d, src, key in (("mma", "ssd_scan_mma.cu", "ms"),
                                         ("cuda_core", "ssd_scan.cu", "cuda_core_ms"))},
         "prefill_shape": rows["ssd_prefill"], "mma_cost": rows["ssd_cost"],
+        "zamba2_shapes": {k: rows[k] for k in ("zamba2_ssd_train", "zamba2_ssd_prefill")},
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,22 @@
+"""llama4-scout-17b-a16e — MoE, 16 experts top-1 + shared expert, early fusion.
+[hf:meta-llama/Llama-4-Scout-17B-16E]
+
+48L d_model=5120 40H (GQA kv=8) d_ff=8192 vocab=202048, MoE 16e top-1.
+"""
+from repro_torch.configs.base import MoEConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama4-scout-17b-a16e",
+    family="moe",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=202048,
+    moe=MoEConfig(n_experts=16, top_k=1, n_shared_experts=1,
+                  d_ff_expert=8192, d_ff_shared=8192),
+    rope_theta=500000.0,
+    max_seq_len=1 << 20,
+)

@@ -1,5 +1,6 @@
 """Synthetic data (deterministic, step-indexed), as torch tensors: LM
-tokens, whisper's stub frames and LeNet image batches.
+tokens, the vision stub's patch embeddings, whisper's stub frames and LeNet
+image batches.
 
 The draws are the reference's numpy draws (``SeedSequence([seed, step])``),
 so a batch is bit-equal to ``repro.data``'s for the same arguments.
@@ -37,18 +38,22 @@ class TokenStream:
 
 def make_batch_for(cfg: ModelConfig, batch: int, seq: int, step: int = 0,
                    seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The batch of ``repro.data.make_batch_for``, on the CPU: tokens, and
-    for an encoder-decoder the stub frame embeddings ``frames`` [batch,
-    encoder_seq_len, d_model] fp32, drawn from ``SeedSequence([seed, step,
-    7])`` (normal × 0.02). The vision stub's patches are not ported."""
-    if cfg.frontend == "vision_patch_stub":
-        raise NotImplementedError(f"{cfg.name}: vision patches not ported yet")
+    """The batch of ``repro.data.make_batch_for``, on the CPU: tokens; for
+    the vision stub the patch embeddings ``patches`` [batch,
+    n_frontend_tokens, d_model] fp32, with the tokens cut to ``max(seq - n,
+    1)``; for an encoder-decoder the stub frame embeddings ``frames``
+    [batch, encoder_seq_len, d_model] fp32. Patches, then frames, are drawn
+    from one ``SeedSequence([seed, step, 7])`` generator (normal × 0.02)."""
     out = {"tokens": TokenStream(cfg.vocab_size, batch, seq, seed).batch(step)}
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, 7]))
+    if cfg.frontend == "vision_patch_stub":
+        n = cfg.n_frontend_tokens
+        out["tokens"] = out["tokens"][:, :max(seq - n, 1)]
+        out["patches"] = torch.from_numpy(rng.normal(
+            size=(batch, n, cfg.d_model)).astype(np.float32) * 0.02)
     if cfg.is_encoder_decoder:
-        rng = np.random.default_rng(np.random.SeedSequence([seed, step, 7]))
-        frames = rng.normal(size=(batch, cfg.encoder_seq_len, cfg.d_model)
-                            ).astype(np.float32) * 0.02
-        out["frames"] = torch.from_numpy(frames)
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32) * 0.02)
     return out
 
 

@@ -7,9 +7,13 @@ device unless ``--device cpu`` is given.
 
 Weights are the port's own seeded random init, drawn on the device. An
 encoder-decoder (whisper-tiny) encodes the batch's stub frames once, before
-the decode loop, and decodes against their cross K/V. The last stdout line
-is the report JSON, with the keys of ``repro.launch.serve`` plus ``device``
-(and ``encode_s`` for an encoder-decoder).
+the decode loop, and decodes against their cross K/V; the vision stub's
+patches are not fed to the decode loop, as in the reference's serve entry
+point. The last stdout line is the report JSON, with the keys of
+``repro.launch.serve`` plus ``device``, ``param_count`` (the config's, as
+the reference counts it), ``tree_params`` (the weights' own count: for a
+hybrid the reference's ``param_count`` adds a dense MLP to every SSM layer)
+and ``encode_s`` for an encoder-decoder.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ def main(argv=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import make_batch_for
     from repro_torch.models import model as MD
+    from repro_torch.tree import tree_size
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -77,6 +82,7 @@ def main(argv=None):
         return None
 
     params = MD.init_model(cfg, seed=args.seed, device=device)
+    n_tree = tree_size(params)
     batch = make_batch_for(cfg, args.batch, args.prompt_len, step=0,
                            seed=args.seed)
     prompt = batch["tokens"].to(device)
@@ -120,6 +126,7 @@ def main(argv=None):
         "decode_tok_per_s": round(B * args.gen / max(t_decode, 1e-9), 1),
         "sample_tokens": gen[0, :8].tolist(),
         "device": device_name(device),
+        "param_count": cfg.param_count(), "tree_params": n_tree,
     }
     if t_encode is not None:
         report["encode_s"] = round(t_encode, 3)

@@ -14,7 +14,10 @@ stdout line is the report JSON, with the keys of ``repro.launch.train``'s
 report that a single-device run has (``arch steps first_loss final_loss
 wall_s losses strategy mesh``) plus ``device``, ``step_ms`` (median over the
 steps after the first, each timed on the host clock ending in a
-synchronise) and ``tokens_per_s`` (batch × seq over that median).
+synchronise), ``tokens_per_s`` (batch × seq over that median),
+``param_count`` and ``tree_params`` (the config's count and the weights'
+own, which differ for a hybrid), and per step the MoE ``aux`` loss and,
+with an MTP head, ``mtp_ce``.
 Checkpointing, fault tolerance, sharding and tracing are not ported yet.
 """
 from __future__ import annotations
@@ -63,6 +66,7 @@ def main(argv=None):
     from repro_torch.data import make_batch_for
     from repro_torch.launch.serve import device_name, sync
     from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_size
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -87,8 +91,9 @@ def main(argv=None):
         return out
 
     state = init_train_state(cfg, tcfg, seed=args.seed, device=device)
+    n_tree = tree_size(state.params)
     step_fn = make_train_step(cfg, tcfg, microbatches=args.microbatches)
-    losses, step_times = [], []
+    losses, step_times, aux, mtp_ce = [], [], [], []
     t_run = time.time()
     for step in range(args.steps):
         batch = {k: v.to(device) for k, v in
@@ -101,6 +106,9 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         step_times.append(dt)
         losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux"]))
+        if "mtp_ce" in metrics:
+            mtp_ce.append(float(metrics["mtp_ce"]))
         if step % args.log_every == 0:
             print(f"step {step:5d} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -117,7 +125,11 @@ def main(argv=None):
            "device": device_name(device),
            "step_ms": step_ms,
            "tokens_per_s": (args.batch * args.seq / (step_ms / 1e3)
-                            if step_ms else None)}
+                            if step_ms else None),
+           "param_count": cfg.param_count(), "tree_params": n_tree,
+           "aux": aux}
+    if mtp_ce:
+        out["mtp_ce"] = mtp_ce
     print(json.dumps(out))
     return out
 

@@ -1,20 +1,26 @@
 """GQA attention with QKV bias, a ring KV cache and cross-attention to given
-K/V (``repro.models.attention``, the GQA subset).
+K/V, and DeepSeek's multi-head latent attention (``repro.models.attention``).
 
 ``attend`` sends q/k/v to ``kernels.ops.attention``: the CUDA flash kernel on
 the card, its plain version on the CPU. The plain version, the reference's
 ``attend_naive`` with its ``_mask_bias``, is
 ``kernels.flash_attention.attention_plain`` (and ``mask_bias``), beside the
-kernel it stands for.
+kernel it stands for. MLA's training and prefill path expands K/V out of
+the latent and attends through the same ``attend`` (the flash kernel at qk
+dim 192, v zero-padded to it); its decode over the latent cache is the
+absorbed form in fp32 products, with no kernel, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import mask_bias
 from repro_torch.models.layers import Params, apply_rope, dense, init_dense
 
 
@@ -88,3 +94,90 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
         new_cache = (k, v, positions)
     y = dense(params["wo"], o.reshape(B, S, cfg.n_heads * hd))
     return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    """Down-projections of q (``wq_a``) and of the kv latent plus the shared
+    rope key (``wkv_a``), up-projections out of them, and ``wo``."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": init_dense(gen, d, m.q_lora_rank, dtype),
+        "wq_b": init_dense(gen, m.q_lora_rank, H * qk, dtype),
+        "wkv_a": init_dense(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, dtype),
+        "wk_b": init_dense(gen, m.kv_lora_rank, H * m.qk_nope_head_dim, dtype),
+        "wv_b": init_dense(gen, m.kv_lora_rank, H * m.v_head_dim, dtype),
+        "wo": init_dense(gen, H * m.v_head_dim, d, dtype),
+    }
+
+
+def mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            positions: torch.Tensor):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, latent [B,S,rank],
+    k_rope [B,S,rope] rotated)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = dense(params["wq_b"], dense(params["wq_a"], x))
+    q = q.view(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    kv = dense(params["wkv_a"], x)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    latent = kv[..., :m.kv_lora_rank]
+    k_rope = apply_rope(kv[..., m.kv_lora_rank:][:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                spec: AttnSpec, positions: torch.Tensor,
+                cache: Optional[Tuple[torch.Tensor, ...]] = None,
+                cache_pos: Optional[int] = None):
+    """MLA attention. cache = (latent [B,cap,rank], k_rope [B,cap,rope],
+    pos [cap]) ring buffers.
+
+    * train/prefill (no cache): K/V expanded out of the latent, attended
+      with Hkv = H at qk dim nope + rope, v zero-padded to that dim and
+      sliced after; returns (y, (latent, k_rope, positions)).
+    * decode: the new latent, rope key and positions are written in place
+      at slot ``cache_pos % cap``; scores and values live in latent space
+      (W_uk absorbed into q, W_uv applied after), fp32 products."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope, latent, k_rope = mla_qkv(params, x, cfg, positions)
+
+    if cache is None:
+        k_nope = dense(params["wk_b"], latent).view(B, S, H, m.qk_nope_head_dim)
+        v = dense(params["wv_b"], latent).view(B, S, H, m.v_head_dim)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, m.qk_rope_head_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        v_pad = F.pad(v, (0, q_full.shape[-1] - m.v_head_dim))
+        o = attend(q_full, k_full, v_pad, positions, positions,
+                   spec._replace(scale=scale))[..., :m.v_head_dim]
+        y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim))
+        return y, (latent, k_rope, positions)
+
+    c_lat, c_rope, cpos = cache
+    cap = c_lat.shape[1]
+    slot = min(int(cache_pos) % cap, cap - S)
+    c_lat[:, slot:slot + S] = latent.to(c_lat.dtype)
+    c_rope[:, slot:slot + S] = k_rope.to(c_rope.dtype)
+    cpos[slot:slot + S] = positions.to(cpos.dtype)
+    wk_b = params["wk_b"]["weight"].view(H, m.qk_nope_head_dim, m.kv_lora_rank)
+    q_lat = torch.einsum("bshn,hnr->bshr", q_nope.float(), wk_b.float())
+    lat = c_lat.float()
+    s = (torch.einsum("bshr,btr->bhst", q_lat, lat)
+         + torch.einsum("bshn,btn->bhst", q_rope.float(), c_rope.float())) * scale
+    s = s + mask_bias(positions, cpos, spec)[None, None]
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", p, lat)
+    wv_b = params["wv_b"]["weight"].view(H, m.v_head_dim, m.kv_lora_rank)
+    o = torch.einsum("bshr,hvr->bshv", o_lat, wv_b.float())
+    y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim).to(x.dtype))
+    return y, (c_lat, c_rope, cpos)

@@ -2,11 +2,15 @@
 
 ``params_from_jax`` takes the tree of ``repro.models.layers.pvalues(params)``
 with numpy leaves (per-layer leaves stacked ``[n_layers, ...]``), unstacks
-the layers of the decoder's segments and of an encoder's, and turns every
-``[d_in, d_out]`` dense kernel into a ``[d_out, d_in]`` ``F.linear`` weight,
-so both packages compute the same function; bare arrays keep their layout,
-and a layer's subtrees (an ``lg_pair``'s ``local``/``global``, a decoder
-block's ``xattn``, an MLP with or without its gate) map key for key. ``lenet_params_from_jax`` does the
+the layers of the decoder's segments and of an encoder's (a zamba group's
+``inner`` Mamba2 leaves twice, ``[groups, inner, ...]``; its ``shared``
+block is not stacked), and turns every ``[d_in, d_out]`` dense kernel into a
+``[d_out, d_in]`` ``F.linear`` weight, so both packages compute the same
+function; bare arrays keep their layout (the MoE router ``[d, E]`` and its
+stacked experts ``[E, d, ff]``), and a layer's subtrees (an ``lg_pair``'s
+``local``/``global``, a decoder block's ``xattn``, an MLP with or without
+its gate, MLA's six projections, the shared expert, the ``mtp`` head) map
+key for key. ``lenet_params_from_jax`` does the
 same for LeNet-5's weights (HWIO convs, fc1's rows in the port's flatten
 order).
 """
@@ -64,7 +68,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     params: Dict[str, Any] = {
         "embed": {"table": _tensor(tree["embed"]["table"], dev)},
         "final_norm": {"scale": _tensor(tree["final_norm"]["scale"], dev)},
-        "segments": [[_convert(_layer(seg_tree, i), dev) for i in range(seg.n)]
+        "segments": [_segment(seg, seg_tree, dev)
                      for seg, seg_tree in zip(segs, tree["segments"])],
     }
     if "lm_head" in tree:
@@ -76,7 +80,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                           for i in range(encoder_segment(cfg).n)]],
             "final_norm": {"scale": _tensor(enc["final_norm"]["scale"], dev)},
         }
+    if "mtp" in tree:
+        params["mtp"] = _convert(tree["mtp"], dev)
     return params
+
+
+def _segment(seg, seg_tree, device):
+    if seg.kind == "zamba_group":
+        inner = seg_tree["inner"]
+        return {"inner": [[_convert(_layer(_layer(inner, g), j), device)
+                           for j in range(seg.inner)] for g in range(seg.n)],
+                "shared": _convert(seg_tree["shared"], device)}
+    return [_convert(_layer(seg_tree, i), device) for i in range(seg.n)]
 
 
 def lenet_params_from_jax(tree: Dict[str, Any], cfg: LeNet5Config,

@@ -1,18 +1,29 @@
-"""Model construction for the ``attn_mlp``, ``lg_pair``, ``ssm``,
-``enc_attn`` and ``dec_attn`` segment kinds: init, the encoder, hidden
-forward, logits, the training loss, prefill and decode
+"""Model construction for every segment kind of the reference: init, the
+encoder, hidden forward, logits, the training loss (with the MoE aux loss,
+DeepSeek's MTP head and the vision stub's patches), prefill and decode
 (``repro.models.model``, the serving and single-device training subset).
+
+Segment kinds: ``attn_mlp``, ``lg_pair`` (local/global pair), ``mla_mlp``
+and ``mla_moe`` (MLA attention with a dense MLP or an MoE), ``attn_moe``
+(GQA with an MoE), ``ssm`` (Mamba2), ``zamba_group`` (``inner`` Mamba2
+blocks, then one attention/MLP block whose weights every group shares) and
+``enc_attn``/``dec_attn`` (whisper).
 
 Parameters are nested dicts of tensors. A segment is a list of per-layer
 dicts (an ``lg_pair`` layer is ``{"local", "global"}``, two ``attn_mlp``
-blocks), and where the reference runs ``lax.scan`` over stacked layers this
-runs a Python loop. Decode caches keep the reference's stacked layout, per
-segment ``(k [n_layers, B, cap, Hkv, hd], v, pos [n_layers, cap])`` for
-attention, a pair of those (local ring, global) for ``lg_pair``, and
-``(conv [n_layers, B, K-1, conv_dim], ssd [n_layers, B, H, P, N] fp32)``
-for Mamba2; each layer writes into its slice in place. An encoder-decoder
-(whisper) runs ``encoder_forward`` once per request and hands the decoder
-its per-layer cross K/V (``stacked_cross_kv``).
+blocks), except a ``zamba_group`` segment, ``{"inner": [[ssm block] * inner]
+* groups, "shared": attn_mlp block}``; where the reference runs ``lax.scan``
+over stacked layers this runs a Python loop. Decode caches keep the
+reference's stacked layout, per segment ``(k [n_layers, B, cap, Hkv, hd],
+v, pos [n_layers, cap])`` for attention, a pair of those (local ring,
+global) for ``lg_pair``, ``(latent [n, B, cap, rank], k_rope [n, B, cap,
+rope], pos [n, cap])`` for MLA, ``(conv [n_layers, B, K-1, conv_dim], ssd
+[n_layers, B, H, P, N] fp32)`` for Mamba2, and for ``zamba_group`` the
+Mamba2 pair stacked ``[groups, inner, ...]`` beside one attention cache per
+application of the shared block, ``[groups, B, cap, Hkv, hd]``; each layer
+writes into its slice in place. An encoder-decoder (whisper) runs
+``encoder_forward`` once per request and hands the decoder its per-layer
+cross K/V (``stacked_cross_kv``).
 """
 from __future__ import annotations
 
@@ -29,54 +40,59 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnSpec
-from repro_torch.models.layers import (embed, init_dense, init_embedding,
-                                       init_mlp, init_rmsnorm, mlp, rmsnorm,
-                                       softcap, unembed)
+from repro_torch.models.layers import (dense, embed, init_dense, init_embedding,
+                                       init_mlp, init_rmsnorm, mlp,
+                                       rmsnorm, softcap, unembed)
 
 MASK_ID = -1                 # label value that is excluded from the loss
 EMPTY_POS = 2 ** 30          # ring-cache "empty slot" position
 
 Caches = List[Tuple]
 CrossKV = Tuple[torch.Tensor, torch.Tensor]   # k, v [n_layers, B, T, Hkv, hd]
-PORTED_KINDS = ("attn_mlp", "lg_pair", "ssm", "dec_attn")
 
 
 @dataclass(frozen=True)
 class SegmentSpec:
     kind: str
-    n: int                    # layers in the segment
+    n: int                    # layers (zamba_group: groups) in the segment
     causal: bool = True
     window: int = 0           # sliding window (0 = global)
-
-
-def _segment_kind(cfg: ModelConfig) -> str:
-    """The reference's segment kind for ``cfg`` (``build_segments``' order)."""
-    if cfg.family == "ssm":
-        return "ssm"
-    if cfg.family == "hybrid":
-        return "zamba_group"
-    if cfg.mla is not None:
-        return "mla_mlp"
-    if cfg.moe is not None:
-        return "attn_moe"
-    if cfg.local_global_pattern:
-        return "lg_pair"
-    if cfg.is_encoder_decoder:
-        return "dec_attn"
-    return "attn_mlp"
+    inner: int = 0            # zamba_group: ssm layers per group
 
 
 def build_segments(cfg: ModelConfig) -> List[SegmentSpec]:
-    kind = _segment_kind(cfg)
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"{cfg.name}: segment kind {kind!r} not ported yet")
-    if kind == "lg_pair":
+    if cfg.family == "ssm":
+        return [SegmentSpec("ssm", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every or cfg.n_layers
+        groups, rem = divmod(cfg.n_layers, k)
+        segs = []
+        if groups:
+            segs.append(SegmentSpec("zamba_group", groups, inner=k,
+                                    window=cfg.attn_window))
+        if rem:
+            segs.append(SegmentSpec("ssm", rem))
+        return segs
+    if cfg.mla is not None:
+        nd = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+        segs = []
+        if nd:
+            segs.append(SegmentSpec("mla_mlp", nd))
+        if cfg.n_layers - nd:
+            segs.append(SegmentSpec("mla_moe", cfg.n_layers - nd))
+        return segs
+    if cfg.moe is not None:
+        return [SegmentSpec("attn_moe", cfg.n_layers)]
+    if cfg.local_global_pattern:
         if cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: lg_pair needs an even layer count")
-        return [SegmentSpec(kind, cfg.n_layers // 2, window=cfg.attn_window)]
-    return [SegmentSpec(kind, cfg.n_layers)]
+        return [SegmentSpec("lg_pair", cfg.n_layers // 2, window=cfg.attn_window)]
+    if cfg.is_encoder_decoder:
+        return [SegmentSpec("dec_attn", cfg.n_layers)]
+    return [SegmentSpec("attn_mlp", cfg.n_layers)]
 
 
 def encoder_segment(cfg: ModelConfig) -> SegmentSpec:
@@ -99,14 +115,28 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Dict[str, A
     if kind == "lg_pair":
         return {"local": init_block(gen, cfg, "attn_mlp"),
                 "global": init_block(gen, cfg, "attn_mlp")}
+    mla = kind in ("mla_mlp", "mla_moe")
     blk = {"ln1": init_rmsnorm(d, gen.device),
-           "attn": A.init_gqa(gen, cfg, dt),
+           "attn": A.init_mla(gen, cfg, dt) if mla else A.init_gqa(gen, cfg, dt),
            "ln2": init_rmsnorm(d, gen.device)}
     if kind == "dec_attn":
         blk["xattn"] = A.init_gqa(gen, cfg, dt)
         blk["ln3"] = init_rmsnorm(d, gen.device)
-    blk["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dt)
+    if kind in ("mla_moe", "attn_moe"):
+        blk["moe"] = M.init_moe(gen, cfg, dt)
+    else:
+        blk["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dt)
     return blk
+
+
+def init_segment(gen: torch.Generator, cfg: ModelConfig, seg: SegmentSpec):
+    """A segment's layers; a ``zamba_group`` segment's ``inner`` Mamba2
+    blocks of each group and its ONE shared attention/MLP block."""
+    if seg.kind == "zamba_group":
+        return {"inner": [[init_block(gen, cfg, "ssm") for _ in range(seg.inner)]
+                          for _ in range(seg.n)],
+                "shared": init_block(gen, cfg, "attn_mlp")}
+    return [init_block(gen, cfg, seg.kind) for _ in range(seg.n)]
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0,
@@ -120,8 +150,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype_of(cfg)),
         "final_norm": init_rmsnorm(cfg.d_model, dev),
-        "segments": [[init_block(gen, cfg, s.kind) for _ in range(s.n)]
-                     for s in segs],
+        "segments": [init_segment(gen, cfg, s) for s in segs],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size,
@@ -132,7 +161,18 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
             "segments": [[init_block(gen, cfg, enc.kind) for _ in range(enc.n)]],
             "final_norm": init_rmsnorm(cfg.d_model, dev),
         }
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": init_dense(gen, 2 * cfg.d_model, cfg.d_model, dtype_of(cfg)),
+            "norm_h": init_rmsnorm(cfg.d_model, dev),
+            "norm_e": init_rmsnorm(cfg.d_model, dev),
+            "block": init_block(gen, cfg, _mtp_kind(cfg)),
+        }
     return params
+
+
+def _mtp_kind(cfg: ModelConfig) -> str:
+    return "mla_mlp" if cfg.mla else "attn_mlp"
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +188,12 @@ def _attn_spec(cfg: ModelConfig, causal=True, window=0) -> AttnSpec:
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
                 cache=None, cache_pos=None, window=0, causal=True,
                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """One block of ``kind``. Returns (x, new_cache).
+    """One block of ``kind``. Returns (x, new_cache, aux): aux is the MoE
+    load-balance loss (0-d fp32) of an ``mla_moe`` or ``attn_moe`` block,
+    None for the other kinds.
 
     An ``ssm`` block with a cache writes its new conv and SSD states into the
-    cache tensors in place, as the attention block writes its ring cache.
+    cache tensors in place, as the attention blocks write their ring caches.
     An ``lg_pair`` is its local block (``window``) then its global block,
     each an ``attn_mlp`` with its own cache of the pair. A ``dec_attn``
     block's cross-attention reads ``enc_kv`` (k, v [B, T, Hkv, hd]); without
@@ -164,20 +206,21 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
             for old, new in zip(cache, new_cache):
                 old.copy_(new)
             new_cache = cache
-        return x + h, new_cache
+        return x + h, new_cache, None
     if kind == "lg_pair":
-        x, c0 = apply_block(params["local"], x, cfg, "attn_mlp",
-                            positions=positions,
-                            cache=None if cache is None else cache[0],
-                            cache_pos=cache_pos, window=window)
-        x, c1 = apply_block(params["global"], x, cfg, "attn_mlp",
-                            positions=positions,
-                            cache=None if cache is None else cache[1],
-                            cache_pos=cache_pos, window=0)
-        return x, (c0, c1)
+        x, c0, _ = apply_block(params["local"], x, cfg, "attn_mlp",
+                               positions=positions,
+                               cache=None if cache is None else cache[0],
+                               cache_pos=cache_pos, window=window)
+        x, c1, _ = apply_block(params["global"], x, cfg, "attn_mlp",
+                               positions=positions,
+                               cache=None if cache is None else cache[1],
+                               cache_pos=cache_pos, window=0)
+        return x, (c0, c1), None
     spec = _attn_spec(cfg, causal=causal, window=window)
-    h, new_cache = A.gqa_forward(params["attn"], rmsnorm(params["ln1"], x, eps),
-                                 cfg, spec, positions, cache, cache_pos)
+    attn = A.mla_forward if kind in ("mla_mlp", "mla_moe") else A.gqa_forward
+    h, new_cache = attn(params["attn"], rmsnorm(params["ln1"], x, eps), cfg,
+                        spec, positions, cache, cache_pos)
     x = x + h
     mlp_norm = params["ln2"]
     if kind == "dec_attn":
@@ -186,8 +229,11 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
                              kv_override=enc_kv)
         x = x + h
         mlp_norm = params["ln3"]
+    if "moe" in params:
+        out = M.moe_forward(params["moe"], rmsnorm(mlp_norm, x, eps), cfg)
+        return x + out.y, new_cache, out.aux_loss
     x = x + mlp(params["mlp"], rmsnorm(mlp_norm, x, eps), cfg.mlp_activation)
-    return x, new_cache
+    return x, new_cache, None
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -208,17 +254,11 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat_block(blk, h, cfg: ModelConfig, seg: SegmentSpec, positions,
-                 remat: str, enc_kv=None):
-    """One training block under the remat policy (``_remat_wrap``): "none"
-    keeps its activations for the backward, "full" keeps only its input and
-    recomputes it, "dots" keeps its dense products' outputs too and
-    recomputes the rest (``torch.utils.checkpoint``, selectively)."""
-    def run(x):
-        return apply_block(blk, x, cfg, seg.kind, positions=positions,
-                           window=seg.window, causal=seg.causal,
-                           enc_kv=enc_kv)[0]
-
+def _remat(run, h, remat: str):
+    """``run(h)`` under the remat policy (``_remat_wrap``): "none" keeps its
+    activations for the backward, "full" keeps only its input and recomputes
+    it, "dots" keeps its dense products' outputs too and recomputes the rest
+    (``torch.utils.checkpoint``, selectively)."""
     if remat == "none":
         return run(h)
     if remat == "dots":
@@ -251,8 +291,8 @@ def encoder_forward(params, cfg: ModelConfig, frames):
     positions = torch.arange(frames.shape[1], dtype=torch.int32, device=h.device)
     seg = encoder_segment(cfg)
     for blk in params["encoder"]["segments"][0]:
-        h, _ = apply_block(blk, h, cfg, seg.kind, positions=positions,
-                           causal=seg.causal)
+        h, _, _ = apply_block(blk, h, cfg, seg.kind, positions=positions,
+                              causal=seg.causal)
     return rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
@@ -275,41 +315,99 @@ def encode(params, cfg: ModelConfig, frames) -> CrossKV:
     return stacked_cross_kv(params, cfg, encoder_forward(params, cfg, frames))
 
 
+def _zamba_segment(sp, h, cfg: ModelConfig, seg: SegmentSpec, *, positions,
+                   cache, cache_pos, keep_cache, remat):
+    """A ``zamba_group`` segment: per group, its ``inner`` Mamba2 blocks and
+    then the shared attention/MLP block, which writes its own cache of the
+    group. In training the whole group body is one remat unit (its Mamba2
+    blocks run with remat "none" inside), as the reference wraps it.
+    Returns (h, cache)."""
+    shared = sp["shared"]
+
+    def group(x, layers, ic=None, sc=None):
+        ics = []
+        for j, blk in enumerate(layers):
+            x, c, _ = apply_block(blk, x, cfg, "ssm", positions=positions,
+                                  cache=None if ic is None else _layer_of(ic, j))
+            ics.append(c)
+        x, c, _ = apply_block(shared, x, cfg, "attn_mlp", positions=positions,
+                              cache=sc, cache_pos=cache_pos, window=seg.window)
+        return x, ics, c
+
+    if cache is None and not keep_cache:
+        for layers in sp["inner"]:
+            h = _remat(lambda x, layers=layers: group(x, layers)[0], h, remat)
+        return h, None
+    inner, shared_caches = [], []
+    for g, layers in enumerate(sp["inner"]):
+        if cache is None:
+            h, ics, sc = group(h, layers)
+            inner.append(_stack_layers(ics))
+            shared_caches.append(sc)
+        else:
+            h, _, _ = group(h, layers, _layer_of(cache[0], g), _layer_of(cache[1], g))
+    if cache is not None:
+        return h, cache
+    return h, (_stack_layers(inner), _stack_layers(shared_caches))
+
+
 def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
                    cache_pos=None, enc_kv: Optional[CrossKV] = None,
                    keep_cache=False, remat="none"):
-    """Run all segments. h: [B,S,D]. Returns (h, caches).
+    """Run all segments. h: [B,S,D]. Returns (h, caches, aux): aux is the
+    MoE load-balance loss summed over the blocks, None when no block has
+    one.
 
     With ``caches`` the layers update them in place and the same list comes
     back; without, ``keep_cache`` stacks each segment's per-layer caches
-    ((k, v, pos), a pair of those, or (conv tail, final SSD state)) as the
-    reference's scan does, and otherwise the caches are None. ``enc_kv``
+    ((k, v, pos), a pair of those, MLA's (latent, k_rope, pos), Mamba2's
+    (conv tail, final SSD state), a zamba group's (Mamba2 pair [groups,
+    inner, ...], shared attention [groups, ...])) as the reference's scan
+    does, and otherwise the caches are None. ``enc_kv``
     (``stacked_cross_kv``) feeds the ``dec_attn`` layers' cross-attention.
     ``remat`` applies to the training forward (no caches)."""
     train = caches is None and not keep_cache
-    new_caches = []
+    new_caches, auxs = [], []
     for i, seg in enumerate(build_segments(cfg)):
+        sp = params["segments"][i]
+        c_seg = None if caches is None else caches[i]
+        if seg.kind == "zamba_group":
+            h, nc = _zamba_segment(sp, h, cfg, seg, positions=positions,
+                                   cache=c_seg, cache_pos=cache_pos,
+                                   keep_cache=keep_cache, remat=remat)
+            new_caches.append(nc)
+            continue
         layer_caches = []
-        for j, blk in enumerate(params["segments"][i]):
+        for j, blk in enumerate(sp):
             ekv = (None if enc_kv is None or seg.kind != "dec_attn"
                    else (enc_kv[0][j], enc_kv[1][j]))
+
+            def run(x, blk=blk, ekv=ekv, seg=seg):   # bound: remat reruns it later
+                x, _, a = apply_block(blk, x, cfg, seg.kind, positions=positions,
+                                      window=seg.window, causal=seg.causal,
+                                      enc_kv=ekv)
+                return x, a
+
             if train:
-                h = _remat_block(blk, h, cfg, seg, positions, remat, ekv)
+                h, a = _remat(run, h, remat)
+                auxs.append(a)
                 continue
-            c = None if caches is None else _layer_of(caches[i], j)
-            h, nc = apply_block(blk, h, cfg, seg.kind, positions=positions,
-                                cache=c, cache_pos=cache_pos,
-                                window=seg.window, causal=seg.causal,
-                                enc_kv=ekv)
+            c = None if c_seg is None else _layer_of(c_seg, j)
+            h, nc, a = apply_block(blk, h, cfg, seg.kind, positions=positions,
+                                   cache=c, cache_pos=cache_pos,
+                                   window=seg.window, causal=seg.causal,
+                                   enc_kv=ekv)
+            auxs.append(a)
             layer_caches.append(nc)
-        if caches is not None:
-            new_caches.append(caches[i])
+        if c_seg is not None:
+            new_caches.append(c_seg)
         elif keep_cache:
             new_caches.append(_stack_layers(layer_caches))
         else:
             new_caches.append(None)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    return h, new_caches
+    auxs = [a for a in auxs if a is not None]
+    return h, new_caches, torch.stack(auxs).sum() if auxs else None
 
 
 def logits_fn(params, cfg: ModelConfig, h):
@@ -349,11 +447,24 @@ def cross_entropy(logits, labels, impl: str = "gather"):
     return ce.sum(), mask.sum()
 
 
+def _with_patches(cfg: ModelConfig, h, batch):
+    """The vision stub's precomputed patch embeddings prepended to the text."""
+    if cfg.frontend != "vision_patch_stub":
+        return h
+    return torch.cat([batch["patches"].to(device=h.device, dtype=h.dtype), h], dim=1)
+
+
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: str = "full", ce_impl: str = "gather"):
-    """Training loss. batch: tokens [B,S]; frames [B,T,D] for an
-    encoder-decoder; optional labels (default: next-token). Returns (loss,
-    metrics).
+    """Training loss. batch: tokens [B,S]; patches [B,n,D] for the vision
+    stub; frames [B,T,D] for an encoder-decoder; optional labels (default:
+    next-token). Returns (loss, metrics).
+
+    loss = ce + the summed MoE aux loss (+ ``mtp_loss_weight`` · mtp_ce with
+    an MTP head: the main hidden states and the next tokens' embeddings,
+    each normed, projected together, one block at ``positions[:-1]``, the
+    main final norm and logits, labels shifted once more). The vision
+    stub's patch positions carry MASK_ID labels.
 
     An encoder-decoder's loss is the reference's: its ``loss_fn`` computes
     the encoder and the cross K/V of ``frames`` but hands them to no layer
@@ -361,27 +472,44 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     cross-attention attends within the tokens, non-causally, and the
     encoder's gradient is zero. The port does not run that unused encoder:
     its result reaches neither the loss nor a gradient."""
-    if cfg.frontend == "vision_patch_stub" or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: vision-frontend and MTP "
-                                  "losses not ported yet")
     tokens = batch["tokens"]
     if cfg.is_encoder_decoder and "frames" not in batch:
         raise KeyError(f"{cfg.name}: an encoder-decoder batch needs 'frames'")
-    B, S = tokens.shape
-    h = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    h, _ = hidden_forward(params, cfg, h, positions=positions, remat=remat)
+    B = tokens.shape[0]
+    h = _with_patches(cfg, embed_tokens(params, cfg, tokens), batch)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h, _, aux = hidden_forward(params, cfg, h, positions=positions, remat=remat)
     if "labels" in batch:
         labels = batch["labels"]
     else:
         labels = torch.cat([tokens[:, 1:],
                             torch.full((B, 1), MASK_ID, dtype=tokens.dtype,
                                        device=tokens.device)], dim=1)
+    if cfg.frontend == "vision_patch_stub":
+        labels = torch.cat([torch.full((B, batch["patches"].shape[1]), MASK_ID,
+                                       dtype=labels.dtype, device=labels.device),
+                            labels], dim=1)
     logits = logits_fn(params, cfg, h)
     ce_sum, n_tok = cross_entropy(logits, labels, impl=ce_impl)
     loss = ce_sum / torch.clamp(n_tok, min=1)
-    aux = torch.zeros((), device=loss.device)     # no ported kind has one
+    if aux is None:
+        aux = torch.zeros((), device=loss.device)
     metrics = {"ce": loss, "aux": aux, "tokens": n_tok}
+
+    if cfg.mtp_depth and not cfg.is_encoder_decoder:
+        mtp, eps = params["mtp"], cfg.norm_eps
+        h_in = rmsnorm(mtp["norm_h"], h[:, :-1], eps)
+        e_in = rmsnorm(mtp["norm_e"], embed_tokens(params, cfg, tokens[:, 1:]), eps)
+        hm = dense(mtp["proj"], torch.cat([h_in, e_in], dim=-1))
+        hm, _, _ = apply_block(mtp["block"], hm, cfg, _mtp_kind(cfg),
+                               positions=positions[:-1])
+        hm = rmsnorm(params["final_norm"], hm, eps)
+        mtp_sum, mtp_n = cross_entropy(logits_fn(params, cfg, hm), labels[:, 1:],
+                                       impl=ce_impl)
+        mtp_ce = mtp_sum / torch.clamp(mtp_n, min=1)
+        loss = loss + cfg.mtp_loss_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+
     loss = loss + aux
     metrics["loss"] = loss
     return loss, metrics
@@ -394,15 +522,15 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 def prefill(params, cfg: ModelConfig, batch, *,
             enc_kv: Optional[CrossKV] = None):
     """Full forward keeping caches. Returns (last-position logits [B,V],
-    caches). An encoder-decoder takes its cross K/V as ``enc_kv``
-    (``encode``), or encodes ``batch["frames"]`` itself."""
-    tokens = batch["tokens"]
-    h = embed_tokens(params, cfg, tokens)
+    caches). The vision stub prepends ``batch["patches"]``; an
+    encoder-decoder takes its cross K/V as ``enc_kv`` (``encode``), or
+    encodes ``batch["frames"]`` itself."""
+    h = _with_patches(cfg, embed_tokens(params, cfg, batch["tokens"]), batch)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     if cfg.is_encoder_decoder and enc_kv is None:
         enc_kv = encode(params, cfg, batch["frames"])
-    h, caches = hidden_forward(params, cfg, h, positions=positions,
-                               enc_kv=enc_kv, keep_cache=True)
+    h, caches, _ = hidden_forward(params, cfg, h, positions=positions,
+                                  enc_kv=enc_kv, keep_cache=True)
     return logits_fn(params, cfg, h[:, -1:])[:, 0], caches
 
 
@@ -413,9 +541,9 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos: int, *,
     caches), the caches updated in place."""
     h = embed_tokens(params, cfg, token)
     positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-    h, new_caches = hidden_forward(params, cfg, h, positions=positions,
-                                   caches=caches, cache_pos=pos,
-                                   enc_kv=enc_kv)
+    h, new_caches, _ = hidden_forward(params, cfg, h, positions=positions,
+                                      caches=caches, cache_pos=pos,
+                                      enc_kv=enc_kv)
     return logits_fn(params, cfg, h)[:, 0], new_caches
 
 
@@ -431,12 +559,21 @@ def _attn_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
             torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
 
 
-def _ssm_cache(cfg: ModelConfig, B: int, n: int, dtype,
+def _mla_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
                device) -> Tuple[torch.Tensor, ...]:
-    """(conv state in the cache dtype, SSD state in fp32), as the reference's."""
+    m = cfg.mla
+    return (torch.zeros((n, B, cap, m.kv_lora_rank), dtype=dtype, device=device),
+            torch.zeros((n, B, cap, m.qk_rope_head_dim), dtype=dtype, device=device),
+            torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
+
+
+def _ssm_cache(cfg: ModelConfig, B: int, lead: Tuple[int, ...], dtype,
+               device) -> Tuple[torch.Tensor, ...]:
+    """(conv state in the cache dtype, SSD state in fp32), as the reference's,
+    stacked on the ``lead`` axes."""
     s, _, nh, conv_dim = S._dims(cfg)
-    return (torch.zeros((n, B, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
-            torch.zeros((n, B, nh, s.head_dim, s.d_state), dtype=torch.float32,
+    return (torch.zeros(lead + (B, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
+            torch.zeros(lead + (B, nh, s.head_dim, s.d_state), dtype=torch.float32,
                         device=device))
 
 
@@ -446,14 +583,17 @@ def init_decode_caches(cfg: ModelConfig, B: int, seq_cap: int,
     dev = resolve_device(device)
     caches = []
     for seg in build_segments(cfg):
-        if seg.kind == "ssm":
-            caches.append(_ssm_cache(cfg, B, seg.n, dtype, dev))
-            continue
-        if seg.kind == "lg_pair":           # (local ring, global cache)
-            local = min(seq_cap, seg.window or seq_cap)
-            caches.append((_attn_cache(cfg, B, local, seg.n, dtype, dev),
-                           _attn_cache(cfg, B, seq_cap, seg.n, dtype, dev)))
-            continue
         cap = min(seq_cap, seg.window) if seg.window else seq_cap
-        caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, dev))
+        if seg.kind == "ssm":
+            caches.append(_ssm_cache(cfg, B, (seg.n,), dtype, dev))
+        elif seg.kind == "zamba_group":    # (inner Mamba2 pair, shared attention)
+            caches.append((_ssm_cache(cfg, B, (seg.n, seg.inner), dtype, dev),
+                           _attn_cache(cfg, B, cap, seg.n, dtype, dev)))
+        elif seg.kind in ("mla_mlp", "mla_moe"):
+            caches.append(_mla_cache(cfg, B, seq_cap, seg.n, dtype, dev))
+        elif seg.kind == "lg_pair":        # (local ring, global cache)
+            caches.append((_attn_cache(cfg, B, cap, seg.n, dtype, dev),
+                           _attn_cache(cfg, B, seq_cap, seg.n, dtype, dev)))
+        else:
+            caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, dev))
     return caches

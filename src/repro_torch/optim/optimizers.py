@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.tree import is_stacked, reference_leaves, tree_leaves, tree_map
+from repro_torch.tree import reference_leaves, stack_dims, tree_leaves, tree_map
 
 
 class OptState(NamedTuple):
@@ -110,16 +110,19 @@ def sgd_update(params, grads, state: OptState, tcfg: TrainConfig, lr: float):
 # Adafactor (factored second moment; for ≥100B runs)
 # ---------------------------------------------------------------------------
 
-def _to_reference(path, tensors):
+def _to_reference(path, tensors, dims):
     """One reference leaf from the port's tensors: dense weights back to
-    ``[d_in, d_out]``, segment layers stacked on a leading axis."""
+    ``[d_in, d_out]``, segment layers stacked on the leading axes ``dims``
+    (``tree.stack_dims``)."""
     ts = [t.float().transpose(-1, -2) if path[-1] == "weight" else t.float()
           for t in tensors]
-    return torch.stack(ts) if is_stacked(path) else ts[0]
+    if not dims:
+        return ts[0]
+    return torch.stack(ts).reshape(dims + ts[0].shape)
 
 
-def _from_reference(path, x):
-    xs = list(x.unbind(0)) if is_stacked(path) else [x]
+def _from_reference(path, x, dims):
+    xs = list(x.reshape((-1,) + x.shape[len(dims):]).unbind(0)) if dims else [x]
     return [t.transpose(-1, -2) if path[-1] == "weight" else t for t in xs]
 
 
@@ -130,7 +133,8 @@ def adafactor_init(params, tcfg: TrainConfig) -> OptState:
     leaves = tree_leaves(params)
     nu = []
     for path, idx in reference_leaves(params):
-        ref = _to_reference(path, [leaves[i] for i in idx])
+        ref = _to_reference(path, [leaves[i] for i in idx],
+                            stack_dims(params, path))
         s, dev = ref.shape, ref.device
         if len(s) >= 2:
             nu.append((torch.zeros(s[:-1], device=dev),
@@ -151,7 +155,8 @@ def adafactor_update(params, grads, state: OptState, tcfg: TrainConfig,
     leaves = tree_leaves(params)
     gleaves = tree_leaves(tree_map(lambda p, g: g, params, grads))
     for (path, idx), nu in zip(reference_leaves(params), state.nu):
-        gf = _to_reference(path, [gleaves[i] for i in idx])
+        dims = stack_dims(params, path)
+        gf = _to_reference(path, [gleaves[i] for i in idx], dims)
         g2 = gf * gf + eps
         if gf.dim() >= 2:
             row, col = nu
@@ -166,10 +171,10 @@ def adafactor_update(params, grads, state: OptState, tcfg: TrainConfig,
         # update clipping (RMS <= 1)
         rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
         update = update / torch.clamp(rms, min=1.0)
-        p_ref = _to_reference(path, [leaves[i] for i in idx])
+        p_ref = _to_reference(path, [leaves[i] for i in idx], dims)
         update = update + tcfg.weight_decay * p_ref
         new_p = p_ref - lr * update
-        for i, t in zip(idx, _from_reference(path, new_p)):
+        for i, t in zip(idx, _from_reference(path, new_p, dims)):
             leaves[i].copy_(t)
     return params, OptState(step, None, state.nu)
 

@@ -2,10 +2,13 @@
 
 The reference keeps each per-layer parameter of a segment as one leaf
 stacked ``[n_layers, ...]``; the port keeps a list of per-layer dicts under
-``tree["segments"][s]``. ``reference_leaves`` groups the port's tensors back
-into the reference's leaves, for the code whose arithmetic spans a whole
-reference leaf (the int8 codec's max-abs scale, adafactor's factored
-moments and its update clipping).
+``tree["segments"][s]``. A zamba group segment is ``{"inner": [[layer] *
+inner] * groups, "shared": block}``: the reference stacks its inner leaves
+``[groups, inner, ...]`` and keeps the shared block unstacked.
+``reference_leaves`` groups the port's tensors back into the reference's
+leaves, for the code whose arithmetic spans a whole reference leaf (the
+int8 codec's max-abs scale, adafactor's factored moments and its update
+clipping).
 """
 from __future__ import annotations
 
@@ -21,6 +24,11 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_size(tree) -> int:
+    """Elements over all leaves: a parameter tree's own parameter count."""
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def tree_unflatten(like, leaves) -> Any:
@@ -70,17 +78,36 @@ def _paths(tree, path=()) -> List[Tuple]:
 _STACKS = (("segments",), ("encoder", "segments"))
 
 
-def _stack_prefix(path) -> int:
-    """Length of ``path``'s stack prefix plus its segment index, or 0."""
+def _reference_key(path) -> Tuple:
+    """The reference leaf ``path`` belongs to: without its layer index (a
+    zamba group's inner leaves without their group and layer indices)."""
     for pre in _STACKS:
+        n = len(pre) + 1                   # the stack prefix and segment index
         if path[:len(pre)] == pre:
-            return len(pre) + 1
-    return 0
+            if path[n] == "shared":
+                return path
+            if path[n] == "inner":
+                return path[:n + 1] + path[n + 3:]
+            return path[:n] + path[n + 1:]
+    return path
 
 
-def is_stacked(key: Tuple) -> bool:
-    """Whether the reference leaf ``key`` stacks layers."""
-    return _stack_prefix(key) > 0
+def stack_dims(tree, key: Tuple) -> Tuple[int, ...]:
+    """The layer axes the reference leaf ``key`` of ``tree`` stacks: () for
+    an unstacked leaf, (n_layers,), or (groups, inner) for a zamba group's
+    inner leaves."""
+    for pre in _STACKS:
+        n = len(pre) + 1
+        if key[:len(pre)] == pre:
+            seg = tree
+            for k in key[:n]:
+                seg = seg[k]
+            if isinstance(seg, list):
+                return (len(seg),)
+            if key[n] == "inner":
+                return (len(seg["inner"]), len(seg["inner"][0]))
+            return ()
+    return ()
 
 
 def reference_leaves(tree) -> List[Tuple[Tuple, List[int]]]:
@@ -88,13 +115,13 @@ def reference_leaves(tree) -> List[Tuple[Tuple, List[int]]]:
     ``tree_leaves(tree)``.
 
     A leaf under ``("segments", s, layer, *rest)`` belongs to the reference
-    leaf ``("segments", s, *rest)``, stacked over the layers in order, and
-    one under ``("encoder", "segments", s, layer, *rest)`` to ``("encoder",
-    "segments", s, *rest)``; any other leaf is a reference leaf of its
-    own."""
+    leaf ``("segments", s, *rest)``, stacked over the layers in order, one
+    under ``("encoder", "segments", s, layer, *rest)`` to ``("encoder",
+    "segments", s, *rest)``, and one under ``("segments", s, "inner", group,
+    layer, *rest)`` to ``("segments", s, "inner", *rest)``, stacked over the
+    groups and then the layers of each; any other leaf (a zamba group's
+    ``shared`` block, ``mtp``'s) is a reference leaf of its own."""
     groups: Dict[Tuple, List[int]] = {}
     for i, path in enumerate(_paths(tree)):
-        n = _stack_prefix(path)
-        key = path[:n] + path[n + 1:] if n else path
-        groups.setdefault(key, []).append(i)
+        groups.setdefault(_reference_key(path), []).append(i)
     return list(groups.items())

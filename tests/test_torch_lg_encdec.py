@@ -136,7 +136,7 @@ def test_hidden_forward_and_prefill_match(variant):
     jh, jcaches, _ = JMD.hidden_forward(
         jparams, jcfg, JMD.embed_tokens(jparams, jcfg, jnp.asarray(toks)),
         positions=jnp.arange(T), enc_kv=jenc, keep_cache=True)
-    h, caches = MD.hidden_forward(
+    h, caches, _ = MD.hidden_forward(
         params, cfg, MD.embed_tokens(params, cfg, torch.from_numpy(toks)),
         positions=torch.arange(T, dtype=torch.int32), enc_kv=enc,
         keep_cache=True)
@@ -195,7 +195,7 @@ def test_ring_cache_eviction_matches_reference():
         _assert_ulp(logits, jlogits)
     # slot i of the local ring holds position 16 + i after 24 steps
     np.testing.assert_array_equal(caches[0][0][2][0].numpy(), np.arange(16, 24))
-    h, _ = MD.hidden_forward(params, cfg, MD.embed_tokens(params, cfg, torch.from_numpy(toks)),
+    h, _, _ = MD.hidden_forward(params, cfg, MD.embed_tokens(params, cfg, torch.from_numpy(toks)),
                              positions=torch.arange(24, dtype=torch.int32))
     full = MD.logits_fn(params, cfg, h[:, -1:])[:, 0]
     np.testing.assert_allclose(_np(logits), _np(full), atol=5e-3, rtol=5e-3)

@@ -98,6 +98,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
      "--prompt-len", "5", "--gen", "3"],
     ["--arch", "nemotron-4-15b", "--reduced", "--device", "cpu", "--batch", "1",
      "--prompt-len", "3", "--gen", "2"],
+    ["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "llama4-scout-17b-a16e", "--reduced", "--device", "cpu", "--batch",
+     "2", "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "5", "--gen", "3"],
+    ["--arch", "internvl2-76b", "--reduced", "--device", "cpu", "--batch", "2",
+     "--prompt-len", "20", "--gen", "3"],
 ])
 def test_serve_cpu_report(argv, capsys):
     from repro_torch.launch import serve
@@ -112,6 +120,19 @@ def test_serve_cpu_report(argv, capsys):
     assert report["sample_tokens"] == served.tokens[0, :8].tolist()
     assert torch.isfinite(served.logits.float()).all()
     assert ("encode_s" in report) == ("whisper-tiny" in argv)
+    from repro_torch.models import model as MD
+    from repro_torch.tree import tree_size
+    cfg = _reduced_cfg(argv)
+    assert report["tree_params"] == tree_size(MD.init_model(cfg, device="cpu"))
+    assert report["param_count"] == cfg.param_count()
+
+
+def _reduced_cfg(argv, default="qwen2.5-3b"):
+    """The reduced config an entry point runs for ``argv`` (``default``: its
+    default ``--arch``)."""
+    from repro_torch.configs import get_config, reduced
+    arch = argv[argv.index("--arch") + 1] if "--arch" in argv else default
+    return reduced(get_config(arch))
 
 
 def test_serve_dry_run(capsys):
@@ -186,7 +207,9 @@ def test_mamba2_without_device_flag_needs_cuda(entry):
     assert (FA.LAUNCHES, _codec_launches(), SSD.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "whisper-tiny", "zamba2-1.2b",
+                                  "llama4-scout-17b-a16e", "deepseek-v3-671b",
+                                  "internvl2-76b"])
 @pytest.mark.parametrize("entry", ["train", "serve"])
 def test_new_archs_without_device_flag_need_cuda(entry, arch):
     if torch.cuda.is_available():
@@ -294,6 +317,15 @@ def test_ssd_source_is_for_hopper():
      "--optimizer", "adafactor"],
     ["--arch", "nemotron-4-15b", "--reduced", "--device", "cpu", "--steps", "2",
      "--batch", "2", "--seq", "8", "--optimizer", "sgd"],
+    ["--arch", "zamba2-1.2b", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "40", "--compression", "int8_ef", "--remat", "full"],
+    ["--arch", "llama4-scout-17b-a16e", "--reduced", "--device", "cpu", "--steps",
+     "2", "--batch", "2", "--seq", "16", "--optimizer", "sgd"],
+    ["--arch", "deepseek-v3-671b", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "16", "--compression", "int8_ef", "--optimizer",
+     "adafactor"],
+    ["--arch", "internvl2-76b", "--reduced", "--device", "cpu", "--steps", "2",
+     "--batch", "2", "--seq", "24", "--compression", "int8_ef", "--remat", "dots"],
 ])
 def test_train_cpu_report(argv, capsys):
     from repro_torch.launch import train
@@ -307,6 +339,11 @@ def test_train_cpu_report(argv, capsys):
     assert report["final_loss"] == pytest.approx(sum(report["losses"]) / steps)
     assert report["device"] == "cpu" and report["mesh"] == [1, 1]
     assert report["step_ms"] > 0 and report["tokens_per_s"] > 0
+    cfg = _reduced_cfg(argv, default="smollm-360m")
+    assert report["param_count"] == cfg.param_count() and report["tree_params"] > 0
+    assert len(report["aux"]) == steps
+    assert all(a > 0 for a in report["aux"]) == (cfg.moe is not None)
+    assert ("mtp_ce" in report) == bool(cfg.mtp_depth)
 
 
 def test_train_dry_run(capsys):

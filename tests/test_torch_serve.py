@@ -88,7 +88,7 @@ def test_hidden_forward_and_prefill_match(variant):
     jh, jcaches, _ = JMD.hidden_forward(
         jparams, jcfg, JMD.embed_tokens(jparams, jcfg, jnp.asarray(toks)),
         positions=jpos, keep_cache=True)
-    h, caches = MD.hidden_forward(
+    h, caches, _ = MD.hidden_forward(
         params, cfg, MD.embed_tokens(params, cfg, torch.from_numpy(toks)),
         positions=torch.arange(12, dtype=torch.int32), keep_cache=True)
     np.testing.assert_allclose(_np(h), _np(jh), atol=HIDDEN_TOL, rtol=HIDDEN_TOL)
@@ -129,7 +129,7 @@ def test_decode_steps_match(variant):
             jparams, jcfg, JMD.embed_tokens(jparams, jcfg, jnp.asarray(toks[:, pos:pos + 1])),
             positions=jnp.full((1,), pos, jnp.int32), caches=jcaches,
             cache_pos=pos, keep_cache=True)
-        h, caches = MD.hidden_forward(
+        h, caches, _ = MD.hidden_forward(
             params, cfg, MD.embed_tokens(params, cfg, torch.from_numpy(toks[:, pos:pos + 1])),
             positions=torch.full((1,), pos, dtype=torch.int32), caches=caches,
             cache_pos=pos)
