@@ -139,7 +139,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     prefill without patches, as serving feeds none) and trained (patches
     prepended, their labels masked), each with exact launches. Every run
     through an entry point checks that its report's ``param_count`` is the
-    config's handed to it.
+    config's handed to it;
+20. the sharded LM train step (``sharded_lm``): full-width smollm-360m
+    through ``launch.train.main(["--devices", "4", "--strategy",
+    "fsdp_tp", "--compression", "int8_ef", ...])`` (adamw, batch 8 x seq
+    512, a warm-up and 3 steps) over a world of 4 ranks sharing the card
+    (gloo, mesh data 2 x model 2, the legacy body): the path, mesh, pool
+    and every rank on the card; step 0's loss against the single-device
+    loss on the same batch and seed within the bf16 tier; per rank and
+    step exactly 32 flash ``tile`` launches (its 4 rows) and one absmax +
+    one quantize launch per parameter tensor (290); each rank's peak
+    memory and their sum under the card's. Then, on a pool of 4, one
+    overlap-body step held to the legacy body's at the same mesh in fp32
+    (the MLP split on model, attention streamed: 15 heads do not divide
+    2) and a profiled legacy step per rank (device busy); then flash
+    attention at the per-rank shape q [4, 512, 15, 64] against its plain
+    version, timed beside SDPA ``is_causal`` and its bytes bound.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -308,8 +323,9 @@ def profile_steps(torch, run, steps, what, card):
 
 
 # Phase 14: LeNet-5 corners of Table 1 for the iteration parity, dropout 0:
-# mnist and cifar10, stride 3 with same, kernel 5 with pool 5 on a map
-# smaller than the window, sgd and adam, each activation.
+# each dataset, stride 3 with same, kernel 5 with pool 5 on a map smaller
+# than the window, sgd and adam, each activation: four corners, since each
+# compiles both compiled modes (~20 s a corner).
 PIPELINE_CORNERS = [
     dict(kernel_size=5, pool_size=2, padding="valid", stride=1, dataset="mnist",
          activation="relu", optimizer="sgd", n_filters=16, learning_rate=0.1,
@@ -323,18 +339,6 @@ PIPELINE_CORNERS = [
     dict(kernel_size=3, pool_size=3, padding="valid", stride=1, dataset="cifar10",
          activation="relu", optimizer="adam", n_filters=64, learning_rate=0.001,
          batch_size=128),
-    dict(kernel_size=2, pool_size=4, padding="same", stride=3, dataset="mnist",
-         activation="tanh", optimizer="sgd", n_filters=4, learning_rate=1e-4,
-         batch_size=8),
-    dict(kernel_size=5, pool_size=4, padding="valid", stride=2, dataset="cifar10",
-         activation="sigmoid", optimizer="adam", n_filters=16, learning_rate=0.1,
-         batch_size=32),
-    dict(kernel_size=3, pool_size=5, padding="same", stride=1, dataset="mnist",
-         activation="relu", optimizer="adam", n_filters=8, learning_rate=1e-5,
-         batch_size=64),
-    dict(kernel_size=4, pool_size=3, padding="valid", stride=3, dataset="cifar10",
-         activation="tanh", optimizer="sgd", n_filters=64, learning_rate=0.01,
-         batch_size=16),
 ]
 PIPELINE_TOL = 1e-4          # iteration on the card vs eager on the CPU, fp32
 COST_RTOL = 1e-5             # cost_fn on the card vs the CPU
@@ -1176,6 +1180,158 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
     torch.cuda.empty_cache()
     path = f"{prefix}train"
     return {path: got}, {path: got_designs}, {path: got_ssd}
+
+
+# Phase 20: the sharded LM train step. launch.train over a world of 4 ranks
+# sharing the card (gloo), mesh plan_remesh(4) = (data 2, model 2), fsdp_tp,
+# adamw + int8_ef, a warm-up step then 3 (the report's medians read steps
+# 1..3). Gates: step 0's loss against the single-device loss on the same
+# batch and seed within the bf16 tier, |d| <= 1e-5 + |loss| / 256; exact
+# launches per rank per step; peak memory. Then one overlap-body step held
+# to the legacy body's at the same mesh in fp32 (sgd, b1 0, no decay, no
+# clip, lr 1: g = p0 - p1), per tensor within the reference test's
+# overlap-vs-legacy tolerance 2e-5 + 1e-5 * max|g_legacy|.
+SHARDED_LM_RANKS, SHARDED_LM_STRATEGY, SHARDED_LM_STEPS = 4, "fsdp_tp", 1 + 3
+SHARDED_LM_LOSS_TIER = 1 / 256
+SHARDED_BODIES_FLOOR = 2e-5
+
+
+def sharded_lm(torch, dev, card):
+    """Phase 20 (a, b): the sharded train step of smollm-360m at full width,
+    driven through
+    ``launch.train.main(["--devices", "4", ...])``, then both bodies on one
+    pool of 4 ranks and a profiled step per rank. Returns ({kernel:
+    launches summed over ranks and steps}, per-rank shape of the flash
+    calls, the numbers printed)."""
+    import numpy as np
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.dist import probes
+    from repro_torch.dist.pool import Pool
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import plan_remesh
+    from repro_torch.models import model as MD
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_LM_RANKS
+    mesh = plan_remesh(n).axes()
+    rows = B // mesh["data"]
+
+    # ---- (a) launch.train over the world -------------------------------------
+    phase(f"sharded {TRAIN_ARCH}: launch.train --devices {n} --strategy "
+          f"{SHARDED_LM_STRATEGY} (mesh {mesh}), adamw + int8_ef, batch {B} x seq {S}, "
+          f"{SHARDED_LM_STEPS} steps, a world of {n} ranks over gloo sharing the card")
+    t0 = time.perf_counter()
+    report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
+                         SHARDED_LM_STRATEGY, "--compression", "int8_ef", "--optimizer",
+                         "adamw", "--batch", str(B), "--seq", str(S), "--steps",
+                         str(SHARDED_LM_STEPS), "--device", dev.type, "--log-every", "1"])
+    run_s = time.perf_counter() - t0
+    if report["path"] != "sharded" or report["mesh"] != [mesh["data"], mesh["model"]]:
+        fail(f"sharded train ran path {report['path']} on mesh {report['mesh']}")
+    want_pool = {"ranks": n, "backend": "gloo", "cards": 1}
+    if report["pool"] != want_pool:
+        fail(f"sharded train pool {report['pool']}, expected {want_pool}")
+    if [r["device"] for r in report["ranks"]] != [torch.cuda.get_device_name(0)] * n:
+        fail(f"sharded train ranks ran on {[r['device'] for r in report['ranks']]}")
+    losses = report["losses"]
+    if len(losses) != SHARDED_LM_STEPS or not all(np.isfinite(losses)):
+        fail(f"sharded train losses not finite: {losses}")
+    params = MD.init_model(full, seed=0, device=dev)
+    batch0 = {k: v.to(dev) for k, v in make_batch_for(full, B, S, step=0).items()}
+    with torch.no_grad():
+        single, _ = MD.loss_fn(params, full, batch0, remat="none")
+    single = float(single)
+    del params, batch0
+    loss_tol = 1e-5 + abs(single) * SHARDED_LM_LOSS_TIER
+    print(f"  step 0 loss {losses[0]:.6f} vs the single-device step's {single:.6f}: "
+          f"|d| {abs(losses[0] - single):.3e} (tier {loss_tol:.3e}); losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if abs(losses[0] - single) > loss_tol:
+        fail(f"sharded step 0 loss {losses[0]} vs single-device {single}")
+    # every rank, every step: its flash calls (its rows, the tile design) and
+    # one absmax + one quantize launch per parameter tensor (the legacy body's
+    # int8_ef reduction; the summed integers are scaled, never dequantized)
+    step_designs, n_flash, _ = _train_work(MD, FA, full, rows, S, "none",
+                                           torch.bfloat16, 1)
+    n_tensors = len(tree_leaves(MD.param_shapes(full)))
+    want = {"flash_attention": n_flash, "quantize_absmax": n_tensors,
+            "quantize_int8": n_tensors, "dequantize_int8": 0, "ssd_scan": 0,
+            "flash_by_design": {v: step_designs.get(v, 0) for v in FA.VARIANTS}}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    totals = collections.Counter()
+    for r in report["ranks"]:
+        for step, got in enumerate(r["launches_per_step"]):
+            if got != want:
+                fail(f"sharded train rank {r['rank']} step {step} launched {got}, "
+                     f"expected {want}")
+            totals.update({k: v for k, v in got.items() if k != "flash_by_design"})
+        if not r["peak_mem_bytes"] < card_bytes:
+            fail(f"sharded train rank {r['rank']} peak memory {r['peak_mem_bytes']}")
+    peaks = [r["peak_mem_bytes"] for r in report["ranks"]]
+    if not sum(peaks) < card_bytes:
+        fail(f"sharded train ranks' peak memory {sum(peaks)} is not under the card's "
+             f"{card_bytes}")
+    regions = {k: [round(r["regions_ms"][k], 3) for r in report["ranks"]]
+               for k in report["ranks"][0]["regions_ms"]}
+    print(f"  launches per rank per step {want} ({n_tensors} parameter tensors), every "
+          f"rank and step; step_ms {report['step_ms']} tokens_per_s "
+          f"{report['tokens_per_s']}; per-rank region ms (median of steps 1..) "
+          f"{regions}; per-rank peak_mem_GB "
+          f"{[round(p / 1e9, 2) for p in peaks]} (sum {round(sum(peaks) / 1e9, 2)} of "
+          f"{round(card_bytes / 1e9, 2)}); run "
+          f"{run_s:.1f} s; card {card}", flush=True)
+    out = {"step_ms": report["step_ms"], "tokens_per_s": report["tokens_per_s"],
+           "regions_ms": regions, "peak_mem_bytes": peaks, "losses": losses,
+           "launches_per_rank_step": want}
+
+    # ---- (b) overlap body vs legacy body; a profiled step per rank --------------
+    phase(f"sharded {TRAIN_ARCH}: overlap body vs legacy body in fp32 at mesh {mesh}, "
+          f"then a profiled legacy step per rank")
+    cfg32 = dataclasses.replace(full, dtype="float32", param_dtype="float32")
+    sgd = TrainConfig(learning_rate=1.0, optimizer="sgd", beta1=0.0, weight_decay=0.0,
+                      grad_clip=1e9, total_steps=10, warmup_steps=0,
+                      remat_policy="none", grad_compression="none")
+    main_tcfg = TrainConfig(learning_rate=3e-4, optimizer="adamw",
+                            grad_compression="int8_ef", remat_policy="none",
+                            total_steps=SHARDED_LM_STEPS,
+                            warmup_steps=SHARDED_LM_STEPS // 10)
+    batch_np = {k: v.numpy() for k, v in make_batch_for(full, B, S, step=0).items()}
+    live = sorted(MD.tp_live_axes(full, mesh["model"]))
+    t0 = time.perf_counter()
+    with Pool(world=n, device=dev) as pool:
+        res = pool.run(probes.sharded_bodies, cfg32, sgd, SHARDED_LM_STRATEGY, 0,
+                       batch_np, mesh=mesh)
+        prof = pool.run(probes.sharded_train_profile, full, main_tcfg,
+                        SHARDED_LM_STRATEGY, 0, batch_np, mesh=mesh)
+    worst = 0.0
+    for j in range(len(res[0]["err"])):
+        gmax = max(r["gmax"][j] for r in res)
+        err = max(r["err"][j] for r in res)
+        lim = SHARDED_BODIES_FLOOR + 1e-5 * gmax
+        if err > lim:
+            fail(f"overlap body tensor {j}: |g_overlap - g_legacy| {err:.3e} > {lim:.3e}")
+        worst = max(worst, err / lim)
+    l_leg, l_ov = res[0]["loss"][False], res[0]["loss"][True]
+    if abs(l_leg - l_ov) > 1e-5 * abs(l_leg):
+        fail(f"overlap body loss {l_ov} vs legacy {l_leg}")
+    busy = [p["busy_ms"] for p in prof]
+    print(f"  overlap vs legacy (tp live axes {live}): worst error {worst:.3f} of "
+          f"2e-5 + 1e-5 * max|g| over {len(res[0]['err'])} tensors x {n} ranks; loss "
+          f"legacy {l_leg:.6f} overlap {l_ov:.6f}", flush=True)
+    print(f"  profiled legacy step per rank (bf16, adamw + int8_ef): wall ms under "
+          f"the profiler "
+          f"{[round(p['wall_ms'], 3) for p in prof]}, device busy ms {busy}, kernels "
+          f"{[p['kernels'] for p in prof]}; {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    out.update(overlap_vs_legacy_worst=worst, busy_ms=busy,
+               profiled_wall_ms=[p["wall_ms"] for p in prof])
+    q_shape = (rows, S, full.n_heads, full.get_head_dim())
+    kv_shape = (rows, S, full.n_kv_heads, full.get_head_dim())
+    return dict(totals), (q_shape, kv_shape), out
 
 
 def main() -> None:
@@ -2273,10 +2429,45 @@ def main() -> None:
              lm_train(torch, dev, card, VLM_ARCH, env, f"{VLM_ARCH}_reduced_", REDUCED_LR,
                       "full", reduced_size=True))
 
+    # ---- 20. the sharded LM train step -----------------------------------------
+    sharded_lm_counts, (rq, rkv), sharded_lm_numbers = sharded_lm(torch, dev, card)
+    phase(f"flash attention at the sharded step's per-rank shape q {list(rq)}")
+    q, k, v = inputs(*rq[:2], rkv[1], rq[2], rkv[2], rq[3], torch.bfloat16)
+    q_pos, kv_pos = tail_pos(rq[1], rkv[1])
+    spec = AttnSpec()
+    got = FA.flash_attention(q, k, v, q_pos, kv_pos, spec)
+    ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.allclose(got.float(), ref.float(), atol=TOL["bfloat16"],
+                          rtol=TOL["bfloat16"]):
+        fail(f"flash attention at the per-rank shape {list(rq)}: {err:.3e}")
+    mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ref, q_pos, kv_pos))
+    bound_ms, bound_by = bound(n_bytes, 4 * rq[0] * rq[2] * rq[3] * int(mask.sum().item()),
+                               "bfloat16")
+    design = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype)
+    rows["train512_rank"] = {
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
+        "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, is_causal=True)),
+        "library_call": "sdpa is_causal", "bound_ms": bound_ms, "bound_by": bound_by,
+        "causal": True, "design": design.variant, "n_splits": design.n_splits,
+        "max_abs_err": err}
+    r = rows["train512_rank"]
+    print(f"  q {list(rq)} kv {list(rkv)} bf16 causal {design.variant}: kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa is_causal "
+          f"{r['library_ms']:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
+          f"|kernel-plain| {err:.3e}; card {card}", flush=True)
+    print(f"  sharded step numbers: {json.dumps(sharded_lm_numbers)}", flush=True)
+    del q, k, v, got, ref, mask, qt, kt, vt
+
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
              "mamba2_prefill_check": prefill_counts,
-             "sharded_pipeline": sharded_counts, **lm_counts}
+             "sharded_pipeline": sharded_counts, **lm_counts,
+             "sharded_lm_train": {k: sharded_lm_counts.get(k, 0) for k in counters}}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}

@@ -14,6 +14,9 @@
     quantizes onto the same grid and the sum of the integers is exact.
   * ``compressed_psum_mean_ef`` — the same collective with per-rank error
     feedback: the residual stays on the rank that incurred it.
+  * ``compressed_psum_mean_leaf`` / ``compressed_psum_mean_ef_leaf`` — the
+    same over the tensors of one reference leaf on one scale (the sharded
+    train step's gradient reduction).
   * ``compress_tree`` / ``init_error_feedback`` — the train step's tree
     plumbing.
 
@@ -117,21 +120,36 @@ def compressed_psum_mean(x: torch.Tensor, group: Optional[ProcessGroup],
     of the local max-abs, so the integer sum is exact and only the shared
     scale carries rounding. int8_ef is refused: error feedback needs the
     residual threaded between steps (``compressed_psum_mean_ef``)."""
+    return compressed_psum_mean_leaf([x], group, mode)[0]
+
+
+def compressed_psum_mean_leaf(xs: Sequence[torch.Tensor],
+                              group: Optional[ProcessGroup],
+                              mode: str = "int8") -> List[torch.Tensor]:
+    """``compressed_psum_mean`` of one reference leaf held as the tensors
+    ``xs`` (its layers): in int8, one MAX all-reduce agrees the scale of
+    the max-abs over all of them, as the reference's over its stacked leaf,
+    then each tensor's integers are summed."""
     if mode == "int8_ef":
         raise ValueError("int8_ef needs a residual buffer — use "
                          "compressed_psum_mean_ef(x, group, err)")
     if mode not in ("none", "bf16", "int8"):
         raise ValueError(f"unknown compression mode {mode!r}")
     n = group_size(group)
-    xf = x.float()
+    xfs = [x.float() for x in xs]
     if mode == "none":
-        return _mean(all_reduce(xf, "sum", group), n).to(x.dtype)
+        return [_mean(all_reduce(xf, "sum", group), n).to(x.dtype)
+                for x, xf in zip(xs, xfs)]
     if mode == "bf16":
-        summed = all_reduce(xf.to(torch.bfloat16).float(), "sum", group)
-        return _mean(summed, n).to(x.dtype)
-    q, scale = ops.quantize_with(xf, all_reduce(ops.absmax(xf), "max", group))
-    summed = all_reduce(q.float(), "sum", group) * scale
-    return _mean(summed, n).to(x.dtype)
+        return [_mean(all_reduce(xf.to(torch.bfloat16).float(), "sum", group),
+                      n).to(x.dtype) for x, xf in zip(xs, xfs)]
+    absmax = all_reduce(ops.absmax(*xfs), "max", group)
+    out = []
+    for x, xf in zip(xs, xfs):
+        q, scale = ops.quantize_with(xf, absmax)
+        summed = all_reduce(q.float(), "sum", group) * scale
+        out.append(_mean(summed, n).to(x.dtype))
+    return out
 
 
 def compressed_psum_mean_ef(x: torch.Tensor, group: Optional[ProcessGroup],
@@ -142,13 +160,29 @@ def compressed_psum_mean_ef(x: torch.Tensor, group: Optional[ProcessGroup],
     ``carried = x + err`` is quantized on the MAX-agreed grid and
     ``new_err = carried − q·scale`` stays on this rank; only the integers
     and the shared scale cross the wire. Returns ``(mean, new_err)``."""
+    (mean,), (new_err,) = compressed_psum_mean_ef_leaf([x], group, [err])
+    return mean, new_err
+
+
+def compressed_psum_mean_ef_leaf(xs: Sequence[torch.Tensor],
+                                 group: Optional[ProcessGroup],
+                                 errs: Sequence[torch.Tensor]
+                                 ) -> Tuple[List[torch.Tensor],
+                                            List[torch.Tensor]]:
+    """``compressed_psum_mean_ef`` of one reference leaf held as the
+    tensors ``xs`` with their residuals ``errs``, on one scale:
+    (means, new residuals)."""
     n = group_size(group)
-    carried = x.float() + err.float()
-    q, scale = ops.quantize_with(carried,
-                                 all_reduce(ops.absmax(carried), "max", group))
-    qf = q.float()
-    summed = all_reduce(qf, "sum", group) * scale
-    return _mean(summed, n).to(x.dtype), carried - qf * scale
+    carried = [x.float() + e.float() for x, e in zip(xs, errs)]
+    absmax = all_reduce(ops.absmax(*carried), "max", group)
+    means, new_errs = [], []
+    for x, c in zip(xs, carried):
+        q, scale = ops.quantize_with(c, absmax)
+        qf = q.float()
+        summed = all_reduce(qf, "sum", group) * scale
+        means.append(_mean(summed, n).to(x.dtype))
+        new_errs.append(c - qf * scale)
+    return means, new_errs
 
 
 def init_error_feedback(params):

@@ -1,7 +1,10 @@
 """A world of ranks, one process each, over ``torch.distributed`` (gloo):
 the port's counterpart of the reference's forced host device pool
 (``DEFAULT_POOL = 8`` in ``repro.launch.train``), on which its sharded
-LeNet iterations run.
+LeNet iterations and its sharded LM train step run. An LM job
+(``launch.train.train_rank``) builds each rank's state from the seed on the
+rank's own device, so no full-width parameter crosses the pool's pickles,
+and rank 0 gathers numbers (losses, times, launches), never tensors.
 
   with Pool(world=8, device="cuda") as pool:
       results = pool.run(job, *args, mesh={"data": 2, "model": 2})

@@ -1,6 +1,7 @@
-"""Pool jobs (``dist.pool.Pool.run``) that run the compressed collectives
-and the sharded LeNet iteration on inputs the caller gives and return what
-each rank holds, as numpy arrays, with the rank's codec-kernel launches.
+"""Pool jobs (``dist.pool.Pool.run``) that run the compressed collectives,
+the sharded LeNet iteration and the sharded LM train step on inputs the
+caller gives and return what each rank holds, as numpy arrays or numbers,
+with the rank's kernel launches.
 The parity tests and ``chip_smoke.py`` hold the results to a reference
 computed in the caller's process; the jobs live here because a spawned rank
 imports them by module path, and the port imports nothing else.
@@ -29,10 +30,18 @@ def read_launches(ctx=None) -> Dict[str, int]:
     return {k: getattr(mod, attr) for k, (mod, attr) in _COUNTERS.items()}
 
 
+def read_designs(ctx=None) -> Dict[str, int]:
+    """This rank's flash attention launches by design since the last reset."""
+    return dict(FA.LAUNCHES_BY_VARIANT)
+
+
 def reset_launches(ctx=None) -> None:
-    """Zero this rank's launch counters (a job, or called in place)."""
+    """Zero this rank's launch counters, by design too (a job, or called in
+    place)."""
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+    FA.LAUNCHES_BY_VARIANT = dict.fromkeys(FA.VARIANTS, 0)
+    SSD.LAUNCHES_BY_VARIANT = dict.fromkeys(SSD.VARIANTS, 0)
 
 
 def set_cudnn(ctx, enabled: bool) -> bool:
@@ -97,3 +106,84 @@ def sharded_iteration(ctx, cfg, modes: List[str],
                                 for k, v in new.items()},
                      "loss": float(loss), "launches": launches}
     return out
+
+
+def _lm_rank_inputs(ctx, cfg, tcfg, strategy, seed, batch, params=None):
+    """This rank's sharded TrainState from ``seed`` (or the whole
+    ``params``) and its rows of the global ``batch`` (numpy), on its device."""
+    from repro_torch.launch.specs import batch_shardings
+    from repro_torch.train.step import init_sharded_train_state
+    mesh, dev = ctx.mesh, ctx.device
+    state = init_sharded_train_state(cfg, tcfg, mesh, strategy, seed=seed,
+                                     device=dev, params=params)
+    rows = batch_shardings({k: torch.from_numpy(v) for k, v in batch.items()},
+                           mesh)
+    return state, {k: v.to(dev) for k, v in rows.items()}
+
+
+def sharded_bodies(ctx, cfg, tcfg, strategy, seed: int,
+                   batch: Dict[str, np.ndarray]) -> Dict:
+    """One legacy and one overlap step of ``make_sharded_train_step`` from
+    the same init (``seed``) on this rank's rows of ``batch``. With sgd, b1
+    0, no decay and no clip, g = (p0 − p1)/lr is each body's reduced
+    gradient; returns, per tensor of this rank's slices, max|g_legacy| and
+    max|g_overlap − g_legacy|, and both bodies' losses."""
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import make_sharded_train_step
+    from repro_torch.tree import tree_leaves
+    full = MD.init_model(cfg, seed=seed, device=ctx.device)
+    grads, losses = {}, {}
+    for overlap in (False, True):
+        state, rows = _lm_rank_inputs(ctx, cfg, tcfg, strategy, seed, batch, full)
+        p0 = [t.clone() for t in tree_leaves(state.params)]
+        step = make_sharded_train_step(cfg, tcfg, ctx.mesh, strategy,
+                                       overlap=overlap)
+        state, metrics = step(state, rows)
+        grads[overlap] = [(a.float() - b.float()) / metrics["lr"]
+                          for a, b in zip(p0, tree_leaves(state.params))]
+        losses[overlap] = float(metrics["loss"])
+        del state, p0
+    return {"gmax": [float(g.abs().max()) for g in grads[False]],
+            "err": [float((a - b).abs().max())
+                    for a, b in zip(grads[True], grads[False])],
+            "loss": losses}
+
+
+def sharded_train_profile(ctx, cfg, tcfg, strategy, seed: int,
+                          batch: Dict[str, np.ndarray]) -> Dict:
+    """A legacy sharded step on this rank, warmed up once, then traced by
+    ``torch.profiler``: the rank's wall ms under the profiler (host clock),
+    its device busy ms (the union of its kernels' intervals in the trace;
+    None if the trace holds no kernel) and its kernel count for the step."""
+    import json
+    import os
+    import tempfile
+    import time
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.step import make_sharded_train_step
+    state, rows = _lm_rank_inputs(ctx, cfg, tcfg, strategy, seed, batch)
+    step = make_sharded_train_step(cfg, tcfg, ctx.mesh, strategy)
+    sync = (lambda: torch.cuda.synchronize(ctx.device)
+            if ctx.device.type == "cuda" else None)
+    state, _ = step(state, rows)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, rows)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    busy, end = 0.0, float("-inf")
+    for e in kernels:                      # union of the kernels' intervals
+        s, t = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e3 if kernels else None,
+            "kernels": len(kernels)}

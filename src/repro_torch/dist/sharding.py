@@ -1,11 +1,22 @@
 """The sharding-strategy registry and each strategy's collectives, as data
 (``repro.dist.sharding``: ``Strategy``, ``STRATEGIES``, ``resolve_strategy``,
-``CollectiveDesc``, ``STRATEGY_COLLECTIVES``, copied), and a mesh of
-``torch.distributed`` process groups with the spec helpers the sharded
-LeNet iteration uses (``Mesh``, ``spec_entries``, ``gather_to_full``,
-``shard_of_full``). The cost model (``repro_torch.perf.costmodel``) prices
-the descriptions. The logical-rule resolution and the streamed gathers of
-the reference module are not ported yet.
+``CollectiveDesc``, ``STRATEGY_COLLECTIVES``, copied), the logical-axis
+resolution (``BATCH_AXES``, ``axis_sizes``, ``logical_to_pspec``,
+``param_pspecs``, ``batch_pspec``, ``spec_to_json``), and a mesh of
+``torch.distributed`` process groups with the helpers of the manual
+(shard_map) paths: ``Mesh``, ``spec_entries``, ``gather_to_full``,
+``shard_of_full``, ``manual_mode`` (the mesh the layer code's Megatron
+collectives run over, and the overlap step's streaming context) and
+``stream_gather`` (a per-layer all-gather whose backward is the compressed
+reduce-scatter). The cost model
+(``repro_torch.perf.costmodel``) prices the collective descriptions.
+
+The reference resolves each parameter's logical axes, in its own layout
+(dense kernels ``[d_in, d_out]``, every segment leaf stacked on a leading
+"layers" axis, which no strategy shards). ``param_pspecs`` resolves each
+port tensor in that order too (a dense ``weight`` ``[d_out, d_in]`` from
+its last dim to its first) and returns the spec in the port's layout, so a
+layer's spec is its stacked reference leaf's without the stacking dims.
 
 A spec is a tuple with one entry per dim: ``None`` (replicated), a mesh-axis
 name, or a tuple of names (the dim split over their product, major first) —
@@ -14,6 +25,7 @@ the reference's ``PartitionSpec``.
 from __future__ import annotations
 
 import itertools
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
@@ -122,6 +134,111 @@ STRATEGY_COLLECTIVES: Dict[str, Tuple[CollectiveDesc, ...]] = {
 }
 if set(STRATEGY_COLLECTIVES) != set(STRATEGIES):
     raise AssertionError("every registry strategy needs a collective description")
+
+
+# ---------------------------------------------------------------------------
+# Logical axes -> specs
+# ---------------------------------------------------------------------------
+
+# Mesh axes that carry the batch, outermost first.
+BATCH_AXES = ("pod", "data")
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis: size} of a ``Mesh`` or a plain mapping."""
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def _fits(cand_axes: Sequence[str], sizes: Mapping[str, int], used: set,
+          dim: Optional[int]) -> bool:
+    prod = 1
+    for a in cand_axes:
+        if a not in sizes or a in used:
+            return False
+        prod *= sizes[a]
+    return dim is None or (prod != 0 and dim % prod == 0)
+
+
+def _trim(entries) -> Tuple:
+    entries = list(entries)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def logical_to_pspec(axes: Sequence[Optional[str]], mesh,
+                     strategy: Union[str, Strategy],
+                     dim_sizes: Optional[Sequence[int]] = None) -> Tuple:
+    """One array's logical axes resolved to a spec, left to right: each dim
+    takes the first candidate of its rule whose axes are in the mesh,
+    unused by an earlier dim and (given ``dim_sizes``) divide the dim."""
+    strat = resolve_strategy(strategy)
+    sizes = axis_sizes(mesh)
+    if dim_sizes is not None and len(dim_sizes) != len(axes):
+        raise ValueError(f"dim_sizes {tuple(dim_sizes)} does not match "
+                         f"axes {tuple(axes)}")
+    used: set = set()
+    entries = []
+    for i, logical in enumerate(axes):
+        dim = None if dim_sizes is None else int(dim_sizes[i])
+        entry = None
+        for cand in strat.candidates(logical):
+            cand_axes = _axes_of(cand)
+            if _fits(cand_axes, sizes, used, dim):
+                used.update(cand_axes)
+                entry = cand_axes if len(cand_axes) > 1 else cand_axes[0]
+                break
+        entries.append(entry)
+    return _trim(entries)
+
+
+def leaf_pspec(axes, shape: Sequence[int], mesh, strategy) -> Tuple:
+    """The port-layout spec of one tensor whose logical axes ``axes``
+    (``models.model.ParamAxes``) are given in the reference's layout."""
+    shape = tuple(shape)
+    ref_shape = shape[::-1] if axes.transposed else shape
+    entries = spec_entries(logical_to_pspec(axes.names, mesh, strategy,
+                                            ref_shape), len(shape))
+    return _trim(entries[::-1] if axes.transposed else entries)
+
+
+def param_pspecs(params, mesh, strategy: Union[str, Strategy]):
+    """A tree of specs, one per tensor of the port's parameter tree, in the
+    port's layout (shapes only are read)."""
+    from repro_torch.models.model import param_axes
+    from repro_torch.tree import tree_map
+    strat = resolve_strategy(strategy)
+    return tree_map(lambda p, ax: leaf_pspec(ax, p.shape, mesh, strat),
+                    params, param_axes(params))
+
+
+def _batch_entry(sizes: Mapping[str, int], used: set, dim: Optional[int]):
+    """Greedy (pod, data) batch sharding honouring divisibility (the
+    reference's ``_batch_entry``)."""
+    chosen = []
+    prod = 1
+    for a in BATCH_AXES:
+        if a not in sizes or a in used:
+            continue
+        if dim is not None and dim % (prod * sizes[a]) != 0:
+            continue
+        chosen.append(a)
+        prod *= sizes[a]
+    if not chosen:
+        return None
+    return tuple(chosen) if len(chosen) > 1 else chosen[0]
+
+
+def batch_pspec(mesh, ndim: int = 1, batch_size: Optional[int] = None) -> Tuple:
+    """The spec sharding dim 0 over the mesh's batch axes."""
+    entry = _batch_entry(axis_sizes(mesh), set(), batch_size)
+    return (entry,) + (None,) * (ndim - 1)
+
+
+def spec_to_json(spec) -> list:
+    """JSON-friendly entries: None | "axis" | ["axis", ...]."""
+    return [None if e is None else list(e) if isinstance(e, tuple) else str(e)
+            for e in tuple(spec)]
 
 
 # ---------------------------------------------------------------------------
@@ -265,3 +382,92 @@ def shard_of_full(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
         block = x.shape[dim] // prod
         x = x.narrow(dim, idx * block, block)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Manual-collectives mode and the streamed per-layer gather
+# ---------------------------------------------------------------------------
+
+# A module global, not a thread-local: the autograd engine reruns a
+# checkpointed layer, collectives included, on its own device thread.
+_MANUAL: Dict[str, object] = {"mesh": None, "batch_group": None,
+                              "stream_mode": None}
+
+
+@contextmanager
+def manual_mode(mesh: Mesh, batch_group: Optional[dist.ProcessGroup] = None,
+                stream_mode: Optional[str] = None):
+    """Inside, ``axis_group`` answers for ``mesh``: the layer code's
+    Megatron collectives (``LocalDim`` markers name a mesh axis) run over
+    its groups (the reference's ``manual_mode``, whose shard_map binds the
+    axis names). With ``stream_mode`` (the overlap step's), a layer's
+    ``StreamDim`` dims gather through ``manual_stream_gather``, whose
+    backward means the gradient over ``batch_group`` in that wire format.
+    Re-entrant."""
+    prev = dict(_MANUAL)
+    _MANUAL.update(mesh=mesh, batch_group=batch_group, stream_mode=stream_mode)
+    try:
+        yield mesh
+    finally:
+        _MANUAL.update(prev)
+
+
+def axis_group(axis: str) -> Optional[dist.ProcessGroup]:
+    """The process group of ``axis`` of the mesh ``manual_mode`` holds."""
+    mesh = _MANUAL["mesh"]
+    if mesh is None:
+        raise RuntimeError(f"a collective over {axis!r} outside manual_mode: "
+                           "LocalDim-marked params belong to a sharded step")
+    return mesh.group(axis)
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index on ``axis`` of the mesh ``manual_mode`` holds."""
+    axis_group(axis)                                   # raises outside it
+    return _MANUAL["mesh"].index(axis)
+
+
+class _StreamGather(torch.autograd.Function):
+    """Forward ``gather_to_full``; backward the gradient's mean over the
+    batch axes in the wire format ``mode``, then this rank's block."""
+
+    @staticmethod
+    def forward(x, entries, mesh, batch_group, mode):
+        return gather_to_full(x, entries, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.entries, ctx.mesh, ctx.batch_group, ctx.mode = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.dist.compression import compressed_psum_mean
+        with torch.no_grad():
+            if ctx.batch_group is not None:
+                g = compressed_psum_mean(g, ctx.batch_group, ctx.mode)
+            g = shard_of_full(g, ctx.entries, ctx.mesh).contiguous()
+        return g, None, None, None, None
+
+
+def stream_gather(entries: Spec, mesh: Mesh,
+                  batch_group: Optional[dist.ProcessGroup], mode: str,
+                  x: torch.Tensor) -> torch.Tensor:
+    """All-gather a ZeRO-sharded leaf inside the compute it feeds (the
+    reference's ``stream_gather``). The backward fuses the gradient's
+    mean-reduction over ``batch_group`` in the wire format ``mode`` (none,
+    bf16 or int8: error feedback cannot thread through a backward) with the
+    slice back to this rank's block, the fsdp reduce-scatter; so the
+    gradient that reaches the optimizer for a streamed leaf is already
+    reduced and sliced. Called from each layer's body, it interleaves the
+    gathers and the reductions with the layers' compute."""
+    return _StreamGather.apply(x, tuple(entries), mesh, batch_group, mode)
+
+
+def manual_stream_gather(entries: Spec, x: torch.Tensor) -> torch.Tensor:
+    """``stream_gather`` over the mesh, batch group and wire format that
+    ``manual_mode`` holds (the overlap step's)."""
+    if _MANUAL["stream_mode"] is None:
+        raise RuntimeError("StreamDim-marked params outside the overlap "
+                           "step's manual_mode")
+    return stream_gather(entries, _MANUAL["mesh"], _MANUAL["batch_group"],
+                         _MANUAL["stream_mode"], x)

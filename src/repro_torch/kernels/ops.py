@@ -30,34 +30,19 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256):
     return SSD.SSDScan.apply(x, dt, A, B, C, D, chunk)
 
 
-def quantize_int8_shared(xs: Sequence[torch.Tensor]
-                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Symmetric max-abs int8 of several tensors on ONE scale, the max-abs
-    over all of them: (int8 values per tensor, 0-d fp32 scale). On the card,
-    one absmax launch per tensor into one device scalar, then one quantize
-    launch per tensor."""
+def absmax(*xs: torch.Tensor) -> torch.Tensor:
+    """max|x| over the tensors ``xs`` as a one-element fp32 tensor on their
+    device: the local scale that a compressed all-reduce agrees on with a
+    MAX all-reduce (``dist.compression.compressed_psum_mean``), one over
+    all the layers of a reference leaf. On the card, one absmax launch per
+    tensor into a fresh device scalar, over a contiguous copy of a strided
+    tensor (cuDNN may hand back a convolution's weight grad channels-last,
+    and on some ranks only)."""
     if xs[0].device.type == "cpu":
-        absmax = torch.stack([Q.absmax_plain(x) for x in xs]).amax()
-        out = [Q.quantize_plain(x, absmax) for x in xs]
-    else:
-        absmax = Q.new_absmax(xs[0].device)
-        for x in xs:
-            Q.absmax_into(x, absmax)
-        out = [Q.quantize_with(x, absmax) for x in xs]
-    return [q for q, _ in out], out[0][1]
-
-
-def absmax(x: torch.Tensor) -> torch.Tensor:
-    """max|x| as a one-element fp32 tensor on x's device: the local scale
-    that a compressed all-reduce agrees on with a MAX all-reduce
-    (``dist.compression.compressed_psum_mean``). On the card, one absmax
-    launch into a fresh device scalar, over a contiguous copy of a strided
-    x (cuDNN may hand back a convolution's weight grad channels-last, and on
-    some ranks only)."""
-    if x.device.type == "cpu":
-        return Q.absmax_plain(x).reshape(1)
-    acc = Q.new_absmax(x.device)
-    Q.absmax_into(x.contiguous(), acc)
+        return torch.stack([Q.absmax_plain(x) for x in xs]).amax().reshape(1)
+    acc = Q.new_absmax(xs[0].device)
+    for x in xs:
+        Q.absmax_into(x.contiguous(), acc)
     return acc
 
 
@@ -69,6 +54,17 @@ def quantize_with(x: torch.Tensor, absmax: torch.Tensor
     if x.device.type == "cpu":
         return Q.quantize_plain(x, absmax)
     return Q.quantize_with(x.contiguous(), absmax)
+
+
+def quantize_int8_shared(xs: Sequence[torch.Tensor]
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Symmetric max-abs int8 of several tensors on ONE scale, the max-abs
+    over all of them (``absmax``): (int8 values per tensor, 0-d fp32
+    scale). On the card, one absmax launch per tensor into one device
+    scalar, then one quantize launch per tensor."""
+    amax = absmax(*xs)
+    out = [quantize_with(x, amax) for x in xs]
+    return [q for q, _ in out], out[0][1]
 
 
 def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

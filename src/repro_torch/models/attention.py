@@ -21,7 +21,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import mask_bias
-from repro_torch.models.layers import Params, apply_rope, dense, init_dense
+from repro_torch.dist.sharding import axis_group
+from repro_torch.models.layers import (Params, apply_rope, dense, init_dense,
+                                       local_dim, marks, tp_f)
 
 
 class AttnSpec(NamedTuple):
@@ -53,7 +55,7 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 cache: Optional[Tuple[torch.Tensor, ...]] = None,
                 cache_pos: Optional[int] = None,
                 kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+                axes=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """x: [B,S,D]; positions: int32 [S]. cache: (k, v, pos) with k,v
     [B,cap,Hkv,hd] ring buffers and pos [cap] the absolute position held in
     each slot (PAD_POS when empty).
@@ -64,17 +66,30 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     * cross-attention: ``kv_override`` gives precomputed (k, v)
       [B,T,Hkv,hd] at positions ``arange(T)``; neither q nor k is rotated
       and no cache is written.
+
+    Local heads (the overlap train step): a ``LocalDim`` on wq's and wk's
+    output dims means this rank holds 1/m of the q and kv heads; the input
+    enters through ``tp_f`` and wo's row split is closed by ``dense``.
     """
     B, S, _ = x.shape
     hd = cfg.get_head_dim()
-    q = dense(params["wq"], x).view(B, S, cfg.n_heads, hd)
+    nH, nKV = cfg.n_heads, cfg.n_kv_heads
+    colq = local_dim(marks(axes, "wq", "weight", 0))
+    colk = local_dim(marks(axes, "wk", "weight", 0))
+    if colq is not None:
+        x = tp_f(axis_group(colq.axis), x)
+        nH //= colq.size
+    if colk is not None:
+        nKV //= colk.size
+    wo = marks(axes, "wo")
+    q = dense(params["wq"], x).view(B, S, nH, hd)
     if kv_override is not None:
         k, v = kv_override
         kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
         o = attend(q, k, v, positions, kv_pos, spec)
-        return dense(params["wo"], o.reshape(B, S, cfg.n_heads * hd)), (k, v, positions)
-    k = dense(params["wk"], x).view(B, S, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], x).view(B, S, cfg.n_kv_heads, hd)
+        return dense(params["wo"], o.reshape(B, S, nH * hd), wo), (k, v, positions)
+    k = dense(params["wk"], x).view(B, S, nKV, hd)
+    v = dense(params["wv"], x).view(B, S, nKV, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -92,7 +107,7 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         o = attend(q, k, v, positions, positions, spec)
         new_cache = (k, v, positions)
-    y = dense(params["wo"], o.reshape(B, S, cfg.n_heads * hd))
+    y = dense(params["wo"], o.reshape(B, S, nH * hd), wo)
     return y, new_cache
 
 
@@ -115,15 +130,29 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Para
     }
 
 
+def mla_local_heads(cfg: ModelConfig, axes=None) -> int:
+    """Heads on this rank: n_heads / m when wq_b's output dim is local."""
+    col = local_dim(marks(axes, "wq_b", "weight", 0))
+    return cfg.n_heads // col.size if col is not None else cfg.n_heads
+
+
 def mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor):
+            positions: torch.Tensor, axes=None):
     """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated, latent [B,S,rank],
-    k_rope [B,S,rope] rotated)."""
+    k_rope [B,S,rope] rotated). Head-parallel (a ``LocalDim`` on wq_b's
+    output dim): ``tp_f`` sits after the replicated down-projections, so
+    their grads and the cotangent upstream are completed by its psum."""
     m = cfg.mla
     B, S, _ = x.shape
-    q = dense(params["wq_b"], dense(params["wq_a"], x))
-    q = q.view(B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    lat_q = dense(params["wq_a"], x)
     kv = dense(params["wkv_a"], x)
+    col = local_dim(marks(axes, "wq_b", "weight", 0))
+    if col is not None:
+        group = axis_group(col.axis)
+        lat_q, kv = tp_f(group, lat_q), tp_f(group, kv)
+    q = dense(params["wq_b"], lat_q)
+    q = q.view(B, S, mla_local_heads(cfg, axes),
+               m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
     latent = kv[..., :m.kv_lora_rank]
@@ -135,7 +164,7 @@ def mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
 def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 spec: AttnSpec, positions: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, ...]] = None,
-                cache_pos: Optional[int] = None):
+                cache_pos: Optional[int] = None, axes=None):
     """MLA attention. cache = (latent [B,cap,rank], k_rope [B,cap,rope],
     pos [cap]) ring buffers.
 
@@ -144,12 +173,13 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
       sliced after; returns (y, (latent, k_rope, positions)).
     * decode: the new latent, rope key and positions are written in place
       at slot ``cache_pos % cap``; scores and values live in latent space
-      (W_uk absorbed into q, W_uv applied after), fp32 products."""
+      (W_uk absorbed into q, W_uv applied after), fp32 products.
+    ``axes`` (training only) may keep the heads local (``mla_qkv``)."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = mla_local_heads(cfg, axes)
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    q_nope, q_rope, latent, k_rope = mla_qkv(params, x, cfg, positions)
+    q_nope, q_rope, latent, k_rope = mla_qkv(params, x, cfg, positions, axes)
 
     if cache is None:
         k_nope = dense(params["wk_b"], latent).view(B, S, H, m.qk_nope_head_dim)
@@ -160,7 +190,7 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
         v_pad = F.pad(v, (0, q_full.shape[-1] - m.v_head_dim))
         o = attend(q_full, k_full, v_pad, positions, positions,
                    spec._replace(scale=scale))[..., :m.v_head_dim]
-        y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim))
+        y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim), marks(axes, "wo"))
         return y, (latent, k_rope, positions)
 
     c_lat, c_rope, cpos = cache

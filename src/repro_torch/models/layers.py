@@ -1,24 +1,32 @@
 """Layer primitives over plain dicts of tensors (``repro.models.layers``: the
 dense, MLP, norm, embedding and rope primitives, every activation of
 ``activation_fn``, and the Megatron ``tp_f`` / ``tp_g`` pair with the
-``LocalDim`` marker of its manual tensor-parallel path).
+``LocalDim`` and ``StreamDim`` markers of the manual sharded paths).
 
 A dense layer is ``{"weight": [d_out, d_in], "bias": [d_out]}``, the
 ``F.linear`` layout; ``models.convert`` maps the reference's ``[d_in, d_out]``
 kernels onto it. Initialisers draw from an explicit ``torch.Generator`` with
 the reference's scales (its ``jax.random`` bits cannot be reproduced).
+
+The reference keeps each parameter's logical axes on the leaf
+(``Param.axes``); the port's tensors carry none. A sharded step that keeps
+some dims local hands the layer functions a parallel tree ``axes`` (one
+tuple of entries per tensor, in the port's layout, ``None`` when nothing
+is marked), and the functions branch on its ``LocalDim`` entries as the
+reference's branch on ``Param.axes``: a dense ``weight`` is ``[d_out,
+d_in]``, so its output dim is entry 0 and its input dim entry -1.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch.distributed import ProcessGroup
 
-from repro_torch.dist.sharding import all_reduce
+from repro_torch.dist.sharding import all_reduce, axis_group
 
 Params = Dict[str, torch.Tensor]
 
@@ -173,19 +181,41 @@ def activation_fn(name: str):
     return _ACTIVATIONS[name]
 
 
-def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, params["weight"], params.get("bias"))
+def marks(axes, *keys):
+    """The entries ``axes[k0][k1]...`` of a marker tree, or None."""
+    for k in keys:
+        if axes is None:
+            return None
+        axes = axes.get(k) if isinstance(axes, dict) else axes[k]
+    return axes
 
 
-def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    """down(act(gate(x)) * up(x)) with a gate, else down(act(up(x)))."""
+def dense(params: Params, x: torch.Tensor, axes=None) -> torch.Tensor:
+    """``x @ weight.T + bias``. A ``LocalDim`` on the weight's input dim
+    makes it row-parallel: the partial products are summed over the
+    marker's axis (``tp_g``) before the bias."""
+    row = local_dim(marks(axes, "weight", -1))
+    if row is None:
+        return F.linear(x, params["weight"], params.get("bias"))
+    y = tp_g(axis_group(row.axis), F.linear(x, params["weight"]))
+    return y + params["bias"] if "bias" in params else y
+
+
+def mlp(params: Params, x: torch.Tensor, activation: str,
+        axes=None) -> torch.Tensor:
+    """down(act(gate(x)) * up(x)) with a gate, else down(act(up(x))). A
+    ``LocalDim`` on up's output dim (a column split of the hidden) enters
+    through ``tp_f``; down's row split is closed by ``dense``."""
     act = activation_fn(activation)
+    col = local_dim(marks(axes, "up", "weight", 0))
+    if col is not None:
+        x = tp_f(axis_group(col.axis), x)
     up = dense(params["up"], x)
     if "gate" in params:
         h = act(dense(params["gate"], x)) * up
     else:
         h = act(up)
-    return dense(params["down"], h)
+    return dense(params["down"], h, marks(axes, "down"))
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +227,25 @@ class LocalDim:
     """Axes-entry marker: this dimension holds a 1/``size`` *local* slice,
     split over the mesh axis ``axis`` (``logical`` is the dim's logical
     name). ``perf.sweep.lenet_partition_specs`` marks the split fc pair with
-    it, one entry per dim of the port's layout."""
+    it, and the overlap train step every dim it keeps model-local, one entry
+    per dim of the port's layout."""
     logical: str
     axis: str
     size: int
+
+
+def local_dim(entry) -> Optional[LocalDim]:
+    return entry if isinstance(entry, LocalDim) else None
+
+
+@dataclass(frozen=True)
+class StreamDim:
+    """Axes-entry marker: this dim is ZeRO-sharded and *streamed*: the
+    overlap train step leaves the leaf sharded and each layer's body
+    all-gathers it just before use (``dist.sharding.stream_gather``).
+    ``entry`` is the dim's spec entry (a mesh-axis name or a tuple)."""
+    logical: Optional[str]
+    entry: Any
 
 
 class _TpF(torch.autograd.Function):

@@ -24,13 +24,21 @@ application of the shared block, ``[groups, B, cap, Hkv, hd]``; each layer
 writes into its slice in place. An encoder-decoder (whisper) runs
 ``encoder_forward`` once per request and hands the decoder its per-layer
 cross K/V (``stacked_cross_kv``).
+
+The manual sharded train step (``train.step.make_sharded_train_step``)
+reads each tensor's logical axes from ``param_axes``, asks ``tp_live_axes``
+which of them the layers can keep local, and in its overlap body hands the
+forward a tree of markers (``axes``): ``LocalDim`` dims run Megatron's split
+(``layers.dense``/``mlp``, ``attention``, ``moe``), and ``StreamDim`` dims
+of a segment's layer are gathered inside that layer's body
+(``stream_in_params``, under the step's ``manual_mode``).
 """
 from __future__ import annotations
 
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +51,10 @@ from repro_torch.models import attention as A
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import AttnSpec
-from repro_torch.models.layers import (dense, embed, init_dense, init_embedding,
-                                       init_mlp, init_rmsnorm, mlp,
-                                       rmsnorm, softcap, unembed)
+from repro_torch.models.layers import (StreamDim, dense, embed, init_dense,
+                                       init_embedding, init_mlp, init_rmsnorm,
+                                       marks, mlp, rmsnorm, softcap, unembed)
+from repro_torch.tree import tree_map
 
 MASK_ID = -1                 # label value that is excluded from the loss
 EMPTY_POS = 2 ** 30          # ring-cache "empty slot" position
@@ -101,6 +110,108 @@ def encoder_segment(cfg: ModelConfig) -> SegmentSpec:
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def tp_live_axes(cfg: ModelConfig, m: int) -> FrozenSet[str]:
+    """Logical axes the manual tp step may keep *local* on a model axis of
+    ``m`` ranks (the reference's gate, rule for rule): heads and kv_heads
+    together for GQA (both cut by m), heads alone for MLA; "mlp" unless the
+    stack has Mamba2 blocks (their packed projections mix channels);
+    "expert" when E % m == 0; never vocab or embed; nothing for an
+    encoder-decoder."""
+    if m <= 1 or cfg.is_encoder_decoder:
+        return frozenset()
+    kinds = {s.kind for s in build_segments(cfg)}
+    live = set()
+    if not (kinds & {"ssm", "zamba_group"}):
+        live.add("mlp")
+    if cfg.mla is not None:
+        if cfg.n_heads % m == 0:
+            live.add("heads")
+    elif cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        live.update(("heads", "kv_heads"))
+    if cfg.moe is not None and cfg.moe.n_experts % m == 0:
+        live.add("expert")
+    return frozenset(live)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes of the parameters
+# ---------------------------------------------------------------------------
+
+class ParamAxes(NamedTuple):
+    """A tensor's logical axes as the reference names them, in the
+    reference's layout without its layer-stacking dims; ``transposed`` for a
+    dense weight, whose port layout ``[d_out, d_in]`` reverses them."""
+    names: Tuple[Optional[str], ...]
+    transposed: bool = False
+
+
+# Dense layers by name: (d_in axis, d_out axis); a bias takes d_out's.
+_DENSE_AXES = {
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+    "wq_a": ("embed", None), "wq_b": (None, "heads"),
+    "wkv_a": ("embed", None), "wk_b": (None, "heads"), "wv_b": (None, "heads"),
+    "up": ("embed", "mlp"), "gate": ("embed", "mlp"), "down": ("mlp", "embed"),
+    "in_proj": ("embed", "mlp"), "out_proj": ("mlp", "embed"),
+    "lm_head": ("embed", "vocab"), "proj": ("embed", "embed"),
+}
+# Every other tensor, by its own key.
+_ARRAY_AXES = {
+    "table": ("vocab", "embed"), "scale": (None,),
+    "router": ("embed", "expert"), "w_gate": ("expert", "embed", "mlp"),
+    "w_up": ("expert", "embed", "mlp"), "w_down": ("expert", "mlp", "embed"),
+    "conv_w": (None, "mlp"), "conv_b": ("mlp",), "A_log": ("mlp",),
+    "D": ("mlp",), "dt_bias": ("mlp",), "norm_scale": ("mlp",),
+}
+
+
+def _leaf_axes(path) -> ParamAxes:
+    if path[-1] == "weight":
+        return ParamAxes(_DENSE_AXES[path[-2]], transposed=True)
+    if path[-1] == "bias":
+        return ParamAxes((_DENSE_AXES[path[-2]][1],))
+    return ParamAxes(_ARRAY_AXES[path[-1]])
+
+
+def param_axes(params):
+    """A ``ParamAxes`` per tensor of a parameter tree (``init_model``'s)."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, path + (i,)) for i, v in enumerate(t))
+        return _leaf_axes(path)
+    return walk(params, ())
+
+
+# ---------------------------------------------------------------------------
+# Streamed parameter gathers (the overlap train step)
+# ---------------------------------------------------------------------------
+# The overlap step leaves a segment layer's ZeRO-sharded dims sharded and
+# marks them StreamDim; each layer's body then gathers its tensors inside
+# the layer's compute (``dist.sharding.manual_stream_gather``, whose
+# backward is the reduce-scatter), under the step's ``manual_mode``.
+
+def _stream_in(p: torch.Tensor, ax):
+    """Gather one tensor's StreamDim dims: (tensor, its axes with the
+    StreamDim entries back to their logical names); as given if unmarked."""
+    if ax is None or not any(isinstance(e, StreamDim) for e in ax):
+        return p, ax
+    from repro_torch.dist.sharding import manual_stream_gather
+    entries = tuple(e.entry if isinstance(e, StreamDim) else None for e in ax)
+    v = manual_stream_gather(entries, p)
+    return v, tuple(e.logical if isinstance(e, StreamDim) else e for e in ax)
+
+
+def stream_in_params(tree, axes):
+    """``_stream_in`` over a layer's tensors: (tree, axes)."""
+    if axes is None:
+        return tree, None
+    pairs = tree_map(lambda p, ax: _stream_in(p, ax), tree, axes)
+    return (tree_map(lambda p, pair: pair[0], tree, pairs),
+            tree_map(lambda p, pair: pair[1], tree, pairs))
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +282,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def param_shapes(cfg: ModelConfig):
+    """``init_model``'s tree as shape-only fake tensors, no memory: the
+    counterpart of ``jax.eval_shape`` over the reference's init."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return init_model(cfg, device="cpu")
+
+
 def _mtp_kind(cfg: ModelConfig) -> str:
     return "mla_mlp" if cfg.mla else "attn_mlp"
 
@@ -187,7 +306,8 @@ def _attn_spec(cfg: ModelConfig, causal=True, window=0) -> AttnSpec:
 
 def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
                 cache=None, cache_pos=None, window=0, causal=True,
-                enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                axes=None):
     """One block of ``kind``. Returns (x, new_cache, aux): aux is the MoE
     load-balance loss (0-d fp32) of an ``mla_moe`` or ``attn_moe`` block,
     None for the other kinds.
@@ -197,7 +317,8 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
     An ``lg_pair`` is its local block (``window``) then its global block,
     each an ``attn_mlp`` with its own cache of the pair. A ``dec_attn``
     block's cross-attention reads ``enc_kv`` (k, v [B, T, Hkv, hd]); without
-    it, it attends within x, non-causally, as the reference's does."""
+    it, it attends within x, non-causally, as the reference's does.
+    ``axes`` is the block's marker tree (the overlap train step's)."""
     eps = cfg.norm_eps
     if kind == "ssm":
         h, new_cache = S.mamba2_forward(params["mamba"],
@@ -211,16 +332,19 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
         x, c0, _ = apply_block(params["local"], x, cfg, "attn_mlp",
                                positions=positions,
                                cache=None if cache is None else cache[0],
-                               cache_pos=cache_pos, window=window)
+                               cache_pos=cache_pos, window=window,
+                               axes=marks(axes, "local"))
         x, c1, _ = apply_block(params["global"], x, cfg, "attn_mlp",
                                positions=positions,
                                cache=None if cache is None else cache[1],
-                               cache_pos=cache_pos, window=0)
+                               cache_pos=cache_pos, window=0,
+                               axes=marks(axes, "global"))
         return x, (c0, c1), None
     spec = _attn_spec(cfg, causal=causal, window=window)
     attn = A.mla_forward if kind in ("mla_mlp", "mla_moe") else A.gqa_forward
     h, new_cache = attn(params["attn"], rmsnorm(params["ln1"], x, eps), cfg,
-                        spec, positions, cache, cache_pos)
+                        spec, positions, cache, cache_pos,
+                        axes=marks(axes, "attn"))
     x = x + h
     mlp_norm = params["ln2"]
     if kind == "dec_attn":
@@ -230,9 +354,11 @@ def apply_block(params, x, cfg: ModelConfig, kind: str, *, positions,
         x = x + h
         mlp_norm = params["ln3"]
     if "moe" in params:
-        out = M.moe_forward(params["moe"], rmsnorm(mlp_norm, x, eps), cfg)
+        out = M.moe_forward(params["moe"], rmsnorm(mlp_norm, x, eps), cfg,
+                            axes=marks(axes, "moe"))
         return x + out.y, new_cache, out.aux_loss
-    x = x + mlp(params["mlp"], rmsnorm(mlp_norm, x, eps), cfg.mlp_activation)
+    x = x + mlp(params["mlp"], rmsnorm(mlp_norm, x, eps), cfg.mlp_activation,
+                axes=marks(axes, "mlp"))
     return x, new_cache, None
 
 
@@ -316,12 +442,13 @@ def encode(params, cfg: ModelConfig, frames) -> CrossKV:
 
 
 def _zamba_segment(sp, h, cfg: ModelConfig, seg: SegmentSpec, *, positions,
-                   cache, cache_pos, keep_cache, remat):
+                   cache, cache_pos, keep_cache, remat, axes=None):
     """A ``zamba_group`` segment: per group, its ``inner`` Mamba2 blocks and
     then the shared attention/MLP block, which writes its own cache of the
     group. In training the whole group body is one remat unit (its Mamba2
     blocks run with remat "none" inside), as the reference wraps it.
-    Returns (h, cache)."""
+    ``axes`` marks the shared block only (the step never streams a zamba
+    group, and no Mamba2 dim is kept local). Returns (h, cache)."""
     shared = sp["shared"]
 
     def group(x, layers, ic=None, sc=None):
@@ -331,7 +458,8 @@ def _zamba_segment(sp, h, cfg: ModelConfig, seg: SegmentSpec, *, positions,
                                   cache=None if ic is None else _layer_of(ic, j))
             ics.append(c)
         x, c, _ = apply_block(shared, x, cfg, "attn_mlp", positions=positions,
-                              cache=sc, cache_pos=cache_pos, window=seg.window)
+                              cache=sc, cache_pos=cache_pos, window=seg.window,
+                              axes=marks(axes, "shared"))
         return x, ics, c
 
     if cache is None and not keep_cache:
@@ -353,7 +481,7 @@ def _zamba_segment(sp, h, cfg: ModelConfig, seg: SegmentSpec, *, positions,
 
 def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
                    cache_pos=None, enc_kv: Optional[CrossKV] = None,
-                   keep_cache=False, remat="none"):
+                   keep_cache=False, remat="none", axes=None):
     """Run all segments. h: [B,S,D]. Returns (h, caches, aux): aux is the
     MoE load-balance loss summed over the blocks, None when no block has
     one.
@@ -365,7 +493,9 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
     inner, ...], shared attention [groups, ...])) as the reference's scan
     does, and otherwise the caches are None. ``enc_kv``
     (``stacked_cross_kv``) feeds the ``dec_attn`` layers' cross-attention.
-    ``remat`` applies to the training forward (no caches)."""
+    ``remat`` applies to the training forward (no caches). ``axes`` is the
+    overlap train step's marker tree: each layer's StreamDim tensors are
+    gathered inside its (remat) body."""
     train = caches is None and not keep_cache
     new_caches, auxs = [], []
     for i, seg in enumerate(build_segments(cfg)):
@@ -374,7 +504,8 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
         if seg.kind == "zamba_group":
             h, nc = _zamba_segment(sp, h, cfg, seg, positions=positions,
                                    cache=c_seg, cache_pos=cache_pos,
-                                   keep_cache=keep_cache, remat=remat)
+                                   keep_cache=keep_cache, remat=remat,
+                                   axes=marks(axes, "segments", i))
             new_caches.append(nc)
             continue
         layer_caches = []
@@ -382,10 +513,12 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
             ekv = (None if enc_kv is None or seg.kind != "dec_attn"
                    else (enc_kv[0][j], enc_kv[1][j]))
 
-            def run(x, blk=blk, ekv=ekv, seg=seg):   # bound: remat reruns it later
+            def run(x, blk=blk, ekv=ekv, seg=seg,     # bound: remat reruns it later
+                    bax=marks(axes, "segments", i, j)):
+                blk, bax = stream_in_params(blk, bax)
                 x, _, a = apply_block(blk, x, cfg, seg.kind, positions=positions,
                                       window=seg.window, causal=seg.causal,
-                                      enc_kv=ekv)
+                                      enc_kv=ekv, axes=bax)
                 return x, a
 
             if train:
@@ -455,7 +588,7 @@ def _with_patches(cfg: ModelConfig, h, batch):
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            remat: str = "full", ce_impl: str = "gather"):
+            remat: str = "full", ce_impl: str = "gather", axes=None):
     """Training loss. batch: tokens [B,S]; patches [B,n,D] for the vision
     stub; frames [B,T,D] for an encoder-decoder; optional labels (default:
     next-token). Returns (loss, metrics).
@@ -471,14 +604,18 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     (``hidden_forward`` gets no ``enc_kv``), so each decoder layer's
     cross-attention attends within the tokens, non-causally, and the
     encoder's gradient is zero. The port does not run that unused encoder:
-    its result reaches neither the loss nor a gradient."""
+    its result reaches neither the loss nor a gradient.
+
+    ``axes`` is the overlap train step's marker tree (``hidden_forward``);
+    the top-level tensors are never streamed."""
     tokens = batch["tokens"]
     if cfg.is_encoder_decoder and "frames" not in batch:
         raise KeyError(f"{cfg.name}: an encoder-decoder batch needs 'frames'")
     B = tokens.shape[0]
     h = _with_patches(cfg, embed_tokens(params, cfg, tokens), batch)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    h, _, aux = hidden_forward(params, cfg, h, positions=positions, remat=remat)
+    h, _, aux = hidden_forward(params, cfg, h, positions=positions, remat=remat,
+                               axes=axes)
     if "labels" in batch:
         labels = batch["labels"]
     else:
@@ -502,7 +639,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         e_in = rmsnorm(mtp["norm_e"], embed_tokens(params, cfg, tokens[:, 1:]), eps)
         hm = dense(mtp["proj"], torch.cat([h_in, e_in], dim=-1))
         hm, _, _ = apply_block(mtp["block"], hm, cfg, _mtp_kind(cfg),
-                               positions=positions[:-1])
+                               positions=positions[:-1],
+                               axes=marks(axes, "mtp", "block"))
         hm = rmsnorm(params["final_norm"], hm, eps)
         mtp_sum, mtp_n = cross_entropy(logits_fn(params, cfg, hm), labels[:, 1:],
                                        impl=ce_impl)

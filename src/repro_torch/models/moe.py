@@ -10,8 +10,9 @@ combined with their routing weights in fp32. The router runs in fp32 and
 returns the Switch load-balance loss.
 
 The reference computes all of this outside any Pallas kernel, so the port
-has no kernel here either. Its tensor-parallel expert and ff-column paths
-(``LocalDim`` markers) come with the sharded step.
+has no kernel here either. Under the overlap train step the expert FFN runs
+tensor-parallel (``LocalDim`` markers): expert-local (this rank owns E/m
+experts) or ff-column (every expert's hidden split, ``w_down`` row-parallel).
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig, ModelConfig
-from repro_torch.models.layers import Params, dense, init_dense, normal_param
+from repro_torch.dist.sharding import axis_group, axis_index
+from repro_torch.models.layers import (Params, dense, init_dense, local_dim,
+                                       marks, normal_param, tp_f, tp_g)
 
 
 class MoEOut(NamedTuple):
@@ -113,8 +116,16 @@ class _Combine(torch.autograd.Function):
         return gw, gs
 
 
-def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> MoEOut:
-    """x [B, S, D] -> MoEOut(y [B, S, D] in x's dtype, aux loss)."""
+def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                axes=None) -> MoEOut:
+    """x [B, S, D] -> MoEOut(y [B, S, D] in x's dtype, aux loss).
+
+    A ``LocalDim`` on w_gate's expert dim: this rank's E/m experts run on
+    their rows of the dispatch buffer, and the other rows' outputs are
+    zeros summed in by ``tp_g``; on its ff dim: every expert's hidden is a
+    column slice and w_down's partial products are summed. Either way only
+    the dispatch enters through ``tp_f``: the router and the combine stay on
+    the unwrapped tokens, whose cotangent is complete on every rank."""
     e = cfg.moe
     B, S, D = x.shape
     T, k, E = B * S, e.top_k, e.n_experts
@@ -129,14 +140,30 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> MoEOut:
 
     # scatter token rows into per-expert buffers (+1 overflow row); each
     # kept slot owns its row, so only the discarded overflow row sums
-    rows = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
+    ex = local_dim(marks(axes, "w_gate", 0))
+    ff_col = local_dim(marks(axes, "w_gate", 2))
+    disp = xt
+    if ex is not None:
+        disp = tp_f(axis_group(ex.axis), disp)
+    elif ff_col is not None:
+        disp = tp_f(axis_group(ff_col.axis), disp)
+    rows = disp.repeat_interleave(k, dim=0)                     # [T*k, D]
     buf = xt.new_zeros(E * C + 1, D).index_add(0, dest, rows)
     h = buf[:E * C].view(E, C, D)
 
     # batched expert FFN (gated silu in every MoE arch)
+    if ex is not None:
+        e_loc = E // ex.size
+        h = h[axis_index(ex.axis) * e_loc:][:e_loc]
     g = torch.bmm(h, params["w_gate"])
     u = torch.bmm(h, params["w_up"])
     out = torch.bmm(F.silu(g) * u, params["w_down"])
+    if ex is not None:
+        r = axis_index(ex.axis)
+        out = tp_g(axis_group(ex.axis), F.pad(
+            out, (0, 0, 0, 0, r * e_loc, E - (r + 1) * e_loc)))
+    elif ff_col is not None:
+        out = tp_g(axis_group(ff_col.axis), out)
 
     # gather back and combine with the routing weights (dropped -> 0), the
     # k-weighted sum accumulated in fp32
@@ -148,7 +175,11 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig) -> MoEOut:
     y = y * e.routed_scaling
 
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(dense(sh["gate"], xt)) * dense(sh["up"], xt)
-        y = y + dense(sh["down"], hs).float()
+        sh, sax = params["shared"], marks(axes, "shared")
+        xs = xt
+        col = local_dim(marks(sax, "gate", "weight", 0))
+        if col is not None:
+            xs = tp_f(axis_group(col.axis), xs)
+        hs = F.silu(dense(sh["gate"], xs)) * dense(sh["up"], xs)
+        y = y + dense(sh["down"], hs, marks(sax, "down")).float()
     return MoEOut(y.to(x.dtype).view(B, S, D), aux)

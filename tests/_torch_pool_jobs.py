@@ -49,3 +49,36 @@ def raise_on(ctx, rank):
     if ctx.rank == rank:
         raise ValueError(f"job failed on purpose on rank {rank}")
     return ctx.rank
+
+
+def sharded_step(ctx, cfg, tcfg, strategy, overlaps, tree, batch):
+    """One step of ``make_sharded_train_step`` per body of ``overlaps``
+    (False: legacy, True: overlap), each from the reference's whole params
+    ``tree`` (``pvalues``, numpy) converted and cut to this rank's slices,
+    on this rank's rows of the global ``batch``. Returns, per body, the new
+    params gathered whole (port tensors in ``tree_leaves`` order, rank 0
+    only), this rank's error-feedback residuals, the lr and the loss."""
+    from repro_torch.dist.probes import _lm_rank_inputs
+    from repro_torch.dist.sharding import gather_to_full, param_pspecs
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.train.step import make_sharded_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = ctx.mesh
+    full = params_from_jax(tree, cfg, device=ctx.device)
+    specs = param_pspecs(full, mesh, strategy)
+    out = {}
+    for overlap in overlaps:
+        state, rows = _lm_rank_inputs(ctx, cfg, tcfg, strategy, 0, batch, full)
+        step = make_sharded_train_step(cfg, tcfg, mesh, strategy,
+                                       overlap=overlap)
+        state, metrics = step(state, rows)
+        new = tree_map(lambda p, s: gather_to_full(p, s, mesh), state.params,
+                       specs)
+        out[overlap] = {
+            "params": ([x.float().cpu().numpy() for x in tree_leaves(new)]
+                       if ctx.rank == 0 else None),
+            "ef": (None if state.ef is None else
+                   [x.cpu().numpy() for x in tree_leaves(state.ef)]),
+            "lr": float(metrics["lr"]), "loss": float(metrics["loss"])}
+    return out

@@ -191,6 +191,16 @@ def test_train_without_device_flag_needs_cuda():
     assert (FA.LAUNCHES, _codec_launches()) == before
 
 
+def test_sharded_train_without_device_flag_needs_cuda():
+    """A world of ranks on the card by default: no CUDA, no pool started."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would train")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--reduced", "--steps", "1", "--devices", "4"])
+    assert not torch.distributed.is_initialized()
+
+
 @pytest.mark.parametrize("entry", ["train", "serve"])
 def test_mamba2_without_device_flag_needs_cuda(entry):
     if torch.cuda.is_available():
@@ -351,7 +361,69 @@ def test_train_dry_run(capsys):
     plan = train.main(["--device", "cpu", "--dry-run"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == plan
     assert plan["dry_run"] and plan["arch"] == "smollm-360m"
-    assert plan["path"] == "single"
+    # one device: the reference's gspmd path, which on one device is the
+    # single-device step
+    assert plan["path"] == "gspmd"
+    assert plan["path_reason"] == "auto fallback: single device"
+    assert plan["mesh"] == [1, 1] and plan["devices"] == 1
+
+
+def test_new_modules_are_under_the_import_rule():
+    files = {os.path.relpath(f, PORT) for f in _port_files()}
+    assert {"launch/mesh.py", "launch/specs.py", "train/step.py",
+            "dist/sharding.py", "dist/pool.py"} <= files
+
+
+def test_train_sharded_cpu_report(capsys):
+    """The sharded step over a world of 8 CPU ranks: plan_remesh(8)'s mesh,
+    the pool in the report, one loss a step, every rank's regions timed."""
+    from repro_torch.launch import train
+    report = train.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+                         "--devices", "8", "--strategy", "fsdp_tp",
+                         "--compression", "int8_ef", "--steps", "3", "--seq", "16"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
+    assert REFERENCE_TRAIN_KEYS | {"path", "path_reason", "pool", "ranks"} <= set(report)
+    assert report["path"] == "sharded" and report["path_reason"] == "auto"
+    assert report["mesh"] == [2, 4] and report["strategy"] == "fsdp_tp"
+    assert report["pool"] == {"ranks": 8, "backend": "gloo", "cards": 0}
+    assert len(report["losses"]) == 3 and report["step_ms"] > 0
+    assert [r["rank"] for r in report["ranks"]] == list(range(8))
+    for r in report["ranks"]:
+        assert r["device"] == "cpu"
+        assert set(r["regions_ms"]) == {"gather_params", "grad_compute",
+                                        "grad_reduce", "update"}
+
+
+def test_train_pool_is_the_mesh(capsys):
+    """A world that is not a power of two opens only the mesh's ranks:
+    --devices 3 is plan_remesh(3)'s mesh (1, 2), a pool of 2."""
+    from repro_torch.launch import train
+    report = train.main(["--arch", "smollm-360m", "--reduced", "--device", "cpu",
+                         "--devices", "3", "--steps", "1", "--seq", "16"])
+    assert report["path"] == "sharded" and report["mesh"] == [1, 2]
+    assert report["pool"] == {"ranks": 2, "backend": "gloo", "cards": 0}
+    assert [r["rank"] for r in report["ranks"]] == [0, 1]
+
+
+@pytest.mark.parametrize("argv,reason", [
+    (["--strategy", "dp", "--optimizer", "adafactor", "--devices", "8"],
+     "auto fallback: adafactor needs full-dim factored moments"),
+    (["--devices", "4", "--batch", "3"],
+     "auto fallback: batch 3 not divisible over the batch axes"),
+    (["--devices", "4", "--mode", "gspmd"], "requested"),
+])
+def test_train_gspmd_over_devices_is_not_ported(argv, reason, capsys):
+    """No silent switch: the reference's reason, then "gspmd not ported"."""
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit, match="gspmd not ported") as e:
+        train.main(["--reduced", "--device", "cpu", "--steps", "1", *argv])
+    assert reason in str(e.value)
+
+
+def test_train_sharded_mode_needs_a_world(capsys):
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit, match="impossible: single device"):
+        train.main(["--reduced", "--device", "cpu", "--mode", "sharded"])
 
 
 def _port_launches():
