@@ -25,8 +25,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (split-KV), deepseek-v3's MLA prefill (qk dim 192, v zero-padded: the
    CUDA-core design) and the ``--reduced`` deepseek and internvl2 runs'
    shapes (head dims 24 and 16: CUDA-core; deepseek's MTP block at S - 1),
-   each call gated on the design it must take; and the autograd Function's
-   gradients against autograd through the plain version;
+   each call gated on the design it must take; and the custom op
+   ``repro_torch::flash_attention`` that every call on the card goes
+   through (``hold_op``): its output and gradients against autograd through
+   the plain version at the training shape (fp32, bf16) and at phase 21's
+   shapes, eagerly, and inside ``train.step.compile_fullgraph`` at the lm
+   trial's, one launch a forward;
 4. the int8 codec kernels against their plain versions, bit for bit: the
    reference's test cases, half-ulp boundaries, the zero tensor, random
    sizes, bf16, the training path's shapes (one shared scale over a
@@ -38,8 +42,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    tensor-core design (two groups, an odd count of q tiles, n = 256, a
    misaligned slice that must take the CUDA-core kernel), each call gated
    on the design ``SSD.plan`` picks, the tensor-core kernel's distance to
-   its emulation ``ssd_mma_plain`` printed beside; and the autograd
-   Function's gradients against autograd through the plain version;
+   its emulation ``ssd_mma_plain`` printed beside; and the custom op
+   ``repro_torch::ssd_scan`` as flash attention's (``hold_op``);
 6. full-width qwen2.5-3b served through ``repro_torch.launch.serve.main``
    (batch 4, prompt 32, 32 generated tokens), with every kernel's launches
    counted over that run, flash attention's by design (split-KV only);
@@ -80,9 +84,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     zamba2's, llama4's and deepseek's new shapes (SDPA). The SSD scan's two
     designs at mamba2's and zamba2's training and prefill shapes on the same
     inputs, and the tensor-core kernel's fixed cost and cost per chunk;
+    phase 21's shapes, one a kernel; the host cost a call of the flash
+    attention op against the kernel's wrapper alone at the decode shape;
 14. the paper's pipeline (``paper_pipeline``): the first LeNet-5 iteration
-    of each mode (eager, ``torch.compile``d, compiled in place) at eight
-    Table-1 corners against the port's eager iteration on the CPU (1e-4,
+    of each mode (eager, ``torch.compile``d, compiled in place) at four
+    Table-1 corners (the compiled modes at the first two:
+    ``PIPELINE_JIT_CORNERS``) against the port's eager iteration on the CPU (1e-4,
     fp32, TF32 off), one compiled graph per compiled mode; the sweep
     through ``repro_torch.launch.fit_perfmodel.main`` (90 eager trials,
     then 2 in each compiled mode) with the generic model fitted by DE on
@@ -97,7 +104,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     none/bf16 within n*2^-23*max|x|), exactly one absmax and one quantize
     launch per int8 call per rank; (b) the sharded LeNet-5 iteration at 8
     ranks for dp, fsdp, tp (the fc pair split 8 ways) and fsdp_tp (4 x 2),
-    each with none and int8 (eager; int8 compiled as well), against the
+    each with none and int8 (eager; two of the eight compiled as well:
+    ``SHARDED_JIT_CASES``), against the
     single-process full-batch iteration (the reference test's tolerances,
     eager with cuDNN off: its algorithm for a sub-batch differs from the full
     batch's; compiled with cuDNN on),
@@ -154,7 +162,25 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (the MLP split on model, attention streamed: 15 heads do not divide
     2) and a profiled legacy step per rank (device busy); then flash
     attention at the per-rank shape q [4, 512, 15, 64] against its plain
-    version, timed beside SDPA ``is_causal`` and its bytes bound.
+    version, timed beside SDPA ``is_causal`` and its bytes bound;
+21. the arch sweep (``arch_sweep_phase``), on phase 20's pool of 4: one
+    trial of ``perf.sweep.measure_arch_trial`` in mode "jit" (inductor,
+    ``fullgraph=True``) for each family of ``ARCH_SWEEP_POINTS`` (one
+    layer: lm fsdp_tp 2 x 2 with int8_ef, moe dp with bf16 at n 2, ssm dp
+    at n 4): the compiled single-device step and the compiled overlap body
+    on the ranks, each beside as many eager steps from the same init (every
+    step's loss within ``ARCH_LOSS_GAP``, the parameters after the last
+    within ``ARCH_PARAM_GAP``), with no graph break (two graphs on one
+    device; on a rank three, the gathers, the forward and the update, or
+    two for dp, whose gather region is empty), exact launches per step
+    counted inside the compiled graphs (one CUDA-core flash call per
+    attention layer, one CUDA-core SSD call per Mamba2 layer, one absmax
+    and one quantize per parameter tensor on every rank under int8_ef) and
+    a complete row with its ``t_measured_sharded``. Phase 3 holds the
+    flash attention op at the trials' shapes (compiled at the lm
+    trial's), phase 5 the SSD op at the ssm trial's, eagerly and compiled
+    (and the kernel at the sweep's d_state 16 and 32, which take the
+    tensor cores), and phase 13 times one of each.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -340,6 +366,10 @@ PIPELINE_CORNERS = [
          activation="relu", optimizer="adam", n_filters=64, learning_rate=0.001,
          batch_size=128),
 ]
+# The compiled modes run at the first two corners (both optimizers, two
+# datasets and activations); eager at all four. All four compiled until
+# phase 21 came; cut for chip_smoke's time.
+PIPELINE_JIT_CORNERS = 2
 PIPELINE_TOL = 1e-4          # iteration on the card vs eager on the CPU, fp32
 COST_RTOL = 1e-5             # cost_fn on the card vs the CPU
 ARCH_MAE_BOUND = 1.25        # port's train MAE / the recorded one
@@ -390,7 +420,8 @@ def paper_pipeline(torch, dev, card, reset_counts, read_counts):
                     else (g.abs() >= 1e-6) | (g == 0)) for k, g in g_cpu.items()}
         left_out = sum(int((~m).sum()) for m in sure.values())
         line = []
-        for mode in ("eager", "jit", "jit_donate"):
+        for mode in (("eager", "jit", "jit_donate") if i < PIPELINE_JIT_CORNERS
+                     else ("eager",)):
             params = {k: v.to(dev) for k, v in p_cpu.items()}
             batch = {k: v.to(dev) for k, v in b_cpu.items()}
             it = SW.make_iteration(cfg, mode)
@@ -539,6 +570,11 @@ SHARDED_LOSS_TOL = 1e-5
 SHARDED_CUDNN = 5e-4
 SHARDED_CROSSINGS = 1000
 SHARDED_STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp")
+# The configurations (b) also compiles: dp's int8 and tp's (its split leaves
+# reduce over no axis). All 8 until phase 21 came, which compiles the LM
+# step's collectives and codec; cut to 2 for chip_smoke's time (a compile
+# ~25 s).
+SHARDED_JIT_CASES = (("dp", "int8"), ("tp", "int8"))
 # (c) trials of the measured sweep: each compiles its single-device and its
 # sharded iteration (on every rank of the trial at once, ~50 s). Seed 12's
 # first two trials are fsdp_tp/int8 and tp/none at n = 2: the codec kernels,
@@ -722,6 +758,8 @@ def sharded_pipeline(torch, dev, card):
         torch.backends.cudnn.enabled = True
         pool.run(probes.set_cudnn, True, mesh={"data": pool.world})
         for strategy, comp, cfg, axes, inputs, shard_max, g_max, expect in configs:
+            if (strategy, comp) not in SHARDED_JIT_CASES:
+                continue
             t0 = time.perf_counter()
             res = pool.run(probes.sharded_iteration, cfg, ["eager", "jit"], *inputs,
                            mesh=axes)
@@ -1196,13 +1234,14 @@ SHARDED_LM_LOSS_TIER = 1 / 256
 SHARDED_BODIES_FLOOR = 2e-5
 
 
-def sharded_lm(torch, dev, card):
+def sharded_lm(torch, dev, card, then=None):
     """Phase 20 (a, b): the sharded train step of smollm-360m at full width,
     driven through
     ``launch.train.main(["--devices", "4", ...])``, then both bodies on one
     pool of 4 ranks and a profiled step per rank. Returns ({kernel:
     launches summed over ranks and steps}, per-rank shape of the flash
-    calls, the numbers printed)."""
+    calls, the numbers printed, what ``then(pool)`` returned: a later
+    phase run on the same pool)."""
     import numpy as np
 
     from repro_torch.configs import TrainConfig, get_config
@@ -1307,6 +1346,7 @@ def sharded_lm(torch, dev, card):
                        batch_np, mesh=mesh)
         prof = pool.run(probes.sharded_train_profile, full, main_tcfg,
                         SHARDED_LM_STRATEGY, 0, batch_np, mesh=mesh)
+        later = then(pool) if then is not None else None
     worst = 0.0
     for j in range(len(res[0]["err"])):
         gmax = max(r["gmax"][j] for r in res)
@@ -1331,7 +1371,225 @@ def sharded_lm(torch, dev, card):
                profiled_wall_ms=[p["wall_ms"] for p in prof])
     q_shape = (rows, S, full.n_heads, full.get_head_dim())
     kv_shape = (rows, S, full.n_kv_heads, full.get_head_dim())
-    return dict(totals), (q_shape, kv_shape), out
+    return dict(totals), (q_shape, kv_shape), out, later
+
+
+# Phase 21: one compiled trial of the arch sweep a family, at n <= 4 over
+# the ranks of phase 20's pool (``perf.sweep.measure_arch_trial``, mode
+# "jit", inductor); the fields are ``perf.sweep.ArchPoint``'s. Inductor's
+# compiles, not the steps, set the phase's time: 39-51 s a step on one
+# device and 58-86 s on the ranks for fsdp_tp, tp and fsdp points at one
+# layer on the H100 (PERF.md). So the moe and ssm points are dp, one layer:
+# a rank's rows are the compute probe's sub-batch and its forward graph the
+# compute probe's, which the ranks then take from inductor's cache, and
+# each rank compiles its update (the reduction over gloo) only. The lm
+# point is fsdp_tp at 2 x 2 with int8_ef: the overlap body's gather graph,
+# its Megatron splits and streamed gathers under inductor, and the codec on
+# every rank. moe with bf16, ssm at d_state 8 (the SSD's CUDA-core design).
+# The named --quick run times the other strategies (PERF.md).
+ARCH_SWEEP_POINTS = (
+    dict(family="lm", arch_id="smollm-360m", seq_len=64, d_model=64, n_layers=1,
+         d_ff=128, n_devices=4, batch_size=16, strategy="fsdp_tp",
+         compression="int8_ef"),
+    dict(family="moe", arch_id="llama4-scout-17b-a16e", seq_len=32, d_model=64,
+         n_layers=1, d_ff=64, n_experts=4, top_k=2, n_devices=2, batch_size=8,
+         strategy="dp", compression="bf16"),
+    dict(family="ssm", arch_id="mamba2-370m", seq_len=64, d_model=64, n_layers=1,
+         d_state=8, n_devices=4, batch_size=16, strategy="dp", compression="none"))
+# Compiled against eager, every step from the same init: each step's loss
+# within ARCH_LOSS_GAP of the eager step's (relative), the parameters after
+# the last step within ARCH_PARAM_GAP of the eager ones (each leaf's largest
+# |difference| over its largest |value|: 2^-7 is one bf16 rounding there).
+# On the H100 80GB HBM3 at 700.00 W these points gave loss gaps up to
+# 2.065e-5 and parameter gaps up to 3.953e-3 (one bf16 rounding; PERF.md).
+ARCH_LOSS_GAP = 2.0 ** -12
+ARCH_PARAM_GAP = 2.0 ** -7
+ARCH_SWEEP_ITERS = 2          # timed steps a probe (the reference's n_iters)
+
+
+def hold_op(torch, TS, what, op, plain, ins, names, go, tol, read, want,
+            compiled):
+    """A custom op's caller ``op`` of the tensors ``ins`` (leaves needing
+    grads; its output the one differentiated), eagerly or inside
+    ``TS.compile_fullgraph`` (inductor: the op's fake and its autograd under
+    AOT; the compiling call first, then the one checked), against ``plain``
+    on the same inputs: the output and every input's grad for the
+    cotangent ``go`` within ``tol``, and the launches (``read()``, a
+    counter by design) of the checked forward equal to ``want``. Returns
+    the largest error."""
+    fn = TS.compile_fullgraph(op) if compiled else op
+    if compiled:
+        fn(*ins)
+    before = read()
+    out = fn(*ins)
+    launched = {d: n - before[d] for d, n in read().items() if n != before[d]}
+    got = torch.autograd.grad(out, ins, go)
+    ref = plain(*ins)
+    wanted = torch.autograd.grad(ref, ins, go)
+    torch.cuda.synchronize()
+    pairs = [("out", out, ref)] + [(f"d{n}", a, b) for n, a, b in zip(names, got, wanted)]
+    errs = {n: (a.float() - b.float()).abs().max().item() for n, a, b in pairs}
+    ok = all(torch.allclose(a.float(), b.float(), atol=tol, rtol=tol) for _, a, b in pairs)
+    how = "compiled" if compiled else "eager"
+    print(f"  {what} op {how}: max_abs_err "
+          f"{', '.join(f'{n} {e:.3e}' for n, e in errs.items())} tol={tol:g} "
+          f"launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
+    if launched != want:
+        fail(f"{what} op {how} launched {launched}, expected {want}")
+    if not ok:
+        fail(f"{what} op {how} disagrees with its plain version: {errs}")
+    return max(errs.values())
+
+
+def arch_sweep_shapes(SW, MD, kw):
+    """The flash attention and SSD calls a phase-21 point makes: (label,
+    (B, Sq, Skv, Hq, Hkv, hd)) for its compute probe (the per-device
+    sub-batch) and one rank of its sharded probe (the rows of its data
+    shard, the heads of its model shard when heads are local), and (label,
+    (b, l, h, p, g, n, chunk)) likewise for an ssm point (l padded to the
+    chunk)."""
+    point = SW.ArchPoint(**kw)
+    cfg = point.model_config()
+    mesh = SW.arch_mesh_axes(point.strategy, point.n_devices)
+    m = mesh.get("model", 1)
+    live = MD.tp_live_axes(cfg, m)
+    S = point.seq_len
+    subs = (("compute", max(point.batch_size // point.n_devices, 1), 1),
+            ("rank", point.batch_size // mesh["data"], m if "heads" in live else 1))
+    flash, ssd = [], []
+    if subs[1][1:] == subs[0][1:]:               # dp: a rank's calls are the probe's
+        subs = subs[:1]
+    for where, B, split in subs:
+        tag = f"arch_{point.family}_{where}"
+        if cfg.ssm is not None:
+            s = cfg.ssm
+            L = -(-S // s.chunk_size) * s.chunk_size
+            ssd.append((tag, (B, L, s.expand * cfg.d_model // s.head_dim, s.head_dim,
+                              s.n_groups, s.d_state, s.chunk_size)))
+        else:
+            flash.append((tag, (B, S, S, cfg.n_heads // split, cfg.n_kv_heads // split,
+                                cfg.get_head_dim())))
+    return flash, ssd
+
+
+def arch_sweep_phase(torch, dev, card, pool, env):
+    """Phase 21: ``measure_arch_trial`` of each ``ARCH_SWEEP_POINTS`` point on
+    ``pool``, with as many eager steps from the same init beside each
+    compiled probe. Gates: every step's compiled loss against the eager one
+    (``ARCH_LOSS_GAP``) and the parameters after the last step
+    (``ARCH_PARAM_GAP``), no graph break (two graphs on one device, three
+    on a rank, two for dp), exact launches per step by design counted
+    inside the compiled graphs on the card and on every rank, a complete
+    row with its sharded column. Returns ({kernel: launches over the
+    phase, this process and every rank}, the rows)."""
+    from repro_torch.dist import probes
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models import model as MD
+    from repro_torch.perf import sweep as SW
+    from repro_torch.perf.costmodel import DEFAULT_CALIBRATION
+    from repro_torch.tree import tree_leaves
+
+    import torch._inductor.config as inductor_config
+
+    phase(f"arch sweep: one compiled trial a family (lm, moe, ssm), sharded probes "
+          f"over {pool.world} gloo ranks sharing the card")
+    t_phase = time.perf_counter()
+    # this process compiles its probe while the ranks wait: all the cores
+    # (the pool capped it at cores / world)
+    capped, inductor_config.compile_threads = (inductor_config.compile_threads,
+                                               os.cpu_count() or 1)
+    env.reset_counts()
+    pool.run(probes.reset_launches, mesh={"data": pool.world})
+    keys = [f.name for f in dataclasses.fields(SW.SweepRow)]
+    out_rows = []
+    for kw in ARCH_SWEEP_POINTS:
+        point = SW.ArchPoint(**kw)
+        cfg = point.model_config()
+        t0 = time.perf_counter()
+        extra = {}
+        row = dataclasses.asdict(SW.measure_arch_trial(
+            point, "jit", n_iters=ARCH_SWEEP_ITERS, device=dev, pool=pool,
+            calibration=DEFAULT_CALIBRATION, extra=extra, eager_check=True))
+        wall = time.perf_counter() - t0
+        what = f"arch sweep {point.family}"
+        if list(row) != keys or row["mode"] != "jit" or row["family"] != point.family:
+            fail(f"{what}: row {row}")
+        if not (row["measured_ms"] > 0 and row["t_measured_sharded"]
+                and row["t_measured_sharded"] > 0 and row["sharded_skip"] is None
+                and row["comm_ms"] >= 0 and row["param_bytes"] > 0):
+            fail(f"{what}: incomplete row {row}")
+        probes_run = [("one device", extra)] + [(f"rank {r}", x)
+                                                for r, x in enumerate(extra["sharded"])]
+        loss_gap = param_gap = 0.0
+        for where, x in probes_run:
+            if not len(x["losses"]) == len(x["eager_losses"]) == 1 + ARCH_SWEEP_ITERS:
+                fail(f"{what} {where}: {x['losses']} compiled vs {x['eager_losses']} "
+                     f"eager losses")
+            for i, (got, want) in enumerate(zip(x["losses"], x["eager_losses"])):
+                gap = abs(got - want) / abs(want)
+                loss_gap = max(loss_gap, gap)
+                if gap > ARCH_LOSS_GAP:
+                    fail(f"{what} {where} step {i}: compiled loss {got} vs eager {want}")
+            param_gap = max(param_gap, x["param_gap"])
+            if x["param_gap"] > ARCH_PARAM_GAP:
+                fail(f"{what} {where}: compiled parameters {x['param_gap']} from the "
+                     f"eager ones after {len(x['losses'])} steps")
+        if extra["graph_breaks"] or extra["graphs"] != 2:
+            fail(f"{what}: the compiled step took {extra['graphs']} graphs, "
+                 f"{extra['graph_breaks']} breaks (expected 2, 0)")
+        # gathers, forward, update; dp gathers nothing, so no graph for that
+        want_graphs = 2 if point.strategy == "dp" else 3
+        for r, x in enumerate(extra["sharded"]):
+            if x["graph_breaks"] or x["graphs"] != want_graphs:
+                fail(f"{what} rank {r}: the compiled overlap body took {x['graphs']} "
+                     f"graphs, {x['graph_breaks']} breaks (expected {want_graphs}, 0)")
+        # by design, per step: one flash call (CUDA-core: head_dim below 64)
+        # per attention layer, one SSD call (CUDA-core at d_state 8) per
+        # Mamba2 layer, forward only (the backward recomputes the plain
+        # version); under int8_ef one absmax and one quantize per parameter
+        # tensor on every rank (the reduction, one scale per reference leaf)
+        attn = 0 if cfg.ssm is not None else cfg.n_layers
+        ssm = cfg.n_layers if cfg.ssm is not None else 0
+        n_tensors = len(tree_leaves(MD.param_shapes(cfg)))
+        codec = n_tensors if point.compression == "int8_ef" else 0
+        want_dev = {"flash_attention": attn, "quantize_absmax": 0, "quantize_int8": 0,
+                    "dequantize_int8": 0, "ssd_scan": ssm,
+                    "flash_by_design": {v: (attn if v == "cuda_core" else 0)
+                                        for v in FA.VARIANTS},
+                    "ssd_by_design": {v: (ssm if v == "cuda_core" else 0)
+                                      for v in SSD.VARIANTS}}
+        want_rank = {**want_dev, "quantize_absmax": codec, "quantize_int8": codec}
+        if extra["launches"] != want_dev:
+            fail(f"{what}: the compiled step launched {extra['launches']} a step, "
+                 f"expected {want_dev}")
+        for r, x in enumerate(extra["sharded"]):
+            if x["launches"] != want_rank:
+                fail(f"{what} rank {r}: the compiled overlap body launched "
+                     f"{x['launches']} a step, expected {want_rank}")
+        sh_compile = max(x["warmup_s"] for x in extra["sharded"])
+        print(f"  {point.family:3s} {point.strategy:7s} n={point.n_devices} "
+              f"{point.compression:7s} batch {point.batch_size} seq {point.seq_len}: "
+              f"measured_ms {row['measured_ms']:.3f}, t_measured_sharded "
+              f"{row['t_measured_sharded']:.3f} ms, comm_ms {row['comm_ms']:.4f} "
+              f"(default link), t_simulated {row['t_simulated']:.3f} ms; compile "
+              f"{extra['compile_s']:.1f} s (one device) + {sh_compile:.1f} s (ranks); "
+              f"losses compiled {extra['losses']} vs eager {extra['eager_losses']} "
+              f"(one device), rank 0 {extra['sharded'][0]['losses']} vs "
+              f"{extra['sharded'][0]['eager_losses']}: largest gap {loss_gap:.3e} "
+              f"(limit {ARCH_LOSS_GAP:.3e}), parameters {param_gap:.3e} (limit "
+              f"{ARCH_PARAM_GAP:.3e}); "
+              f"launches a step {want_rank}; {wall:.1f} s; card {card}", flush=True)
+        out_rows.append({"point": kw, "row": row, "compile_s": extra["compile_s"],
+                         "sharded_compile_s": sh_compile, "wall_s": wall,
+                         "loss_gap": loss_gap, "param_gap": param_gap})
+    inductor_config.compile_threads = capped
+    mine = env.read_counts()
+    ranks = pool.run(probes.read_launches, mesh={"data": pool.world})
+    counts = {k: mine[k] + sum(r[k] for r in ranks[1:]) for k in mine}
+    print(f"  launches over the phase (this process and every rank) {counts}; phase "
+          f"21 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    return counts, out_rows
 
 
 def main() -> None:
@@ -1355,6 +1613,7 @@ def main() -> None:
     from repro_torch.launch import serve, train
     from repro_torch.models import model as MD
     from repro_torch.models.attention import AttnSpec
+    from repro_torch.perf import sweep as SW
     from repro_torch.train import step as TS
     from repro_torch.tree import reference_leaves, tree_leaves
 
@@ -1579,6 +1838,12 @@ def main() -> None:
                   *tail_pos(REDUCED_SEQ, REDUCED_SEQ), AttnSpec(causal=True), "cuda_core"))
     cases.append((f"internvl2_reduced_decode_cap{rv_cap}", (BATCH, 1, rv_cap, *rv_heads),
                   *tail_pos(1, rv_cap), AttnSpec(), "cuda_core"))
+    # phase 21's arch-sweep trials: the compute probe's and a rank's calls
+    # (head_dim 16: CUDA-core), causal over the whole sequence
+    for kw in ARCH_SWEEP_POINTS:
+        for label, shape in arch_sweep_shapes(SW, MD, kw)[0]:
+            cases.append((label, shape, *tail_pos(shape[1], shape[2]),
+                          AttnSpec(causal=True), "cuda_core"))
 
     path_err = None
     designs_seen = collections.Counter()
@@ -1614,30 +1879,33 @@ def main() -> None:
     if set(designs_seen) != set(FA.VARIANTS):
         fail(f"the cases did not run every design: {dict(designs_seen)}")
 
-    # The training path's autograd Function: forward is the kernel, backward
-    # recomputes the plain version; its grads against autograd through the
-    # plain version on the same inputs and output cotangent.
-    for dtype in (torch.bfloat16, torch.float32):
+    # The custom op every call on the card goes through: forward the kernel,
+    # backward the plain recompute. At the training shape eagerly (as the
+    # eager LM steps call it), at phase 21's shapes (head_dim 16: CUDA-core)
+    # eagerly, and compiled at the lm trial's compute-probe shape (an
+    # inductor compile ~10 s; phase 21 gates the compiled steps at every
+    # shape), causal over the whole sequence.
+    op_cases = [(f"train{TRAIN_SEQ}", t_shape, dtype, False)
+                for dtype in (torch.bfloat16, torch.float32)]
+    op_cases += [(label, shape, torch.bfloat16, compiled) for kw in ARCH_SWEEP_POINTS
+                 for label, shape in arch_sweep_shapes(SW, MD, kw)[0]
+                 for compiled in ((False, True) if label == "arch_lm_compute"
+                                  else (False,))]
+    for label, shape, dtype, compiled in op_cases:
         dname = str(dtype).split(".")[-1]
-        q, k, v = (t.requires_grad_(True) for t in inputs(*t_shape, dtype))
-        q_pos, kv_pos = tail_pos(TRAIN_SEQ, TRAIN_SEQ)
+        B, Sq, Skv, Hq, Hkv, hd = shape
+        qkv = [t.requires_grad_(True) for t in inputs(*shape, dtype)]
+        q_pos, kv_pos = tail_pos(Sq, Skv)
         spec = AttnSpec(causal=True)
-        out = FA.FlashAttention.apply(q, k, v, q_pos, kv_pos, spec)
-        ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
-        go = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
-        got = torch.autograd.grad(out, (q, k, v), go)
-        want = torch.autograd.grad(ref, (q, k, v), go)
-        torch.cuda.synchronize()
-        for name, a, b in zip("qkv", got, want):
-            err = (a.float() - b.float()).abs().max().item()
-            ok = torch.allclose(a.float(), b.float(), atol=TOL[dname],
-                                rtol=TOL[dname])
-            print(f"  {dname:8s} train{TRAIN_SEQ} d{name} (autograd Function) "
-                  f"max_abs_err={err:.3e} tol={TOL[dname]:g} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"FlashAttention backward disagrees: {dname} d{name} {err}")
-        del q, k, v, out, ref, go, got, want
+        go = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev).to(dtype)
+        design = FA.plan(qkv[0].shape, qkv[1].shape, dtype, dtype, dtype).variant
+        hold_op(torch, TS, f"flash_attention {dname} {label}",
+                lambda q, k, v: FA.attention(q, k, v, q_pos, kv_pos, spec),
+                lambda q, k, v: FA.attention_plain(q, k, v, q_pos, kv_pos, spec),
+                qkv, "qkv", go, TOL[dname], read_variants, {design: 1}, compiled)
+        if label.startswith("arch_") and design != "cuda_core":
+            fail(f"flash_attention {label} takes {design}, not cuda_core")
+        del qkv, go
 
     # ---- 4. codec kernels against plain -----------------------------------
     phase("int8 codec kernels vs plain versions, bit for bit")
@@ -1780,7 +2048,13 @@ def main() -> None:
                     ("mma_odd_q_tiles", (1, 96, 2, 128, 1, 16, 48), None, 0, "mma"),
                     ("mma_n256", (2, 256, 4, 64, 1, 256, 128), None, 0, "mma"),
                     ("misaligned_rows", (2, 128, 4, 64, 1, 128, 64), None, 4,
-                     "cuda_core")])
+                     "cuda_core")]
+                 # phase 21's ssm trial (d_state 8: CUDA-core) and the sweep's
+                 # other state sizes, which SSD.plan sends to the tensor cores
+                 + [(label, case, None, 0, "cuda_core") for kw in ARCH_SWEEP_POINTS
+                    for label, case in arch_sweep_shapes(SW, MD, kw)[1]]
+                 + [(f"arch_ssm_n{n}", (4, 64, 8, 16, 1, n, 32), None, 0, "mma")
+                    for n in (16, 32)])
     ssd_err = ssd_mma_gap = None
     ssd_designs_seen = collections.Counter()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1827,32 +2101,33 @@ def main() -> None:
     if set(ssd_designs_seen) != set(SSD.VARIANTS):
         fail(f"the SSD cases did not run every design: {dict(ssd_designs_seen)}")
 
-    # The training path's autograd Function: forward is the kernel (the
-    # tensor-core one in bf16), backward recomputes the plain version; the
-    # final state goes unused, as in training, so its gradient comes in as
-    # None.
-    for dtype in (torch.bfloat16, torch.float32):
+    # The custom op every call on the card goes through: forward the kernel
+    # (at the training shape the tensor-core one in bf16), backward the
+    # plain recompute; the final state goes unused, as in training, so its
+    # gradient comes in as None. At the training shape eagerly (as the
+    # eager LM steps call it), at phase 21's ssm shape (d_state 8:
+    # CUDA-core) eagerly and compiled.
+    op_cases = [("train", ssd_train, dtype, False)
+                for dtype in (torch.bfloat16, torch.float32)]
+    op_cases += [(label, case, torch.bfloat16, compiled) for kw in ARCH_SWEEP_POINTS
+                 for label, case in arch_sweep_shapes(SW, MD, kw)[1]
+                 for compiled in (False, True)]
+    for label, case, dtype, compiled in op_cases:
         dname = str(dtype).split(".")[-1]
-        tol = SSD_TOL[dname]
-        ins = [t.detach().requires_grad_(True) for t in ssd_inputs(*ssd_train, dtype)]
-        before = read_ssd_variants()
-        y, _ = SSD.SSDScan.apply(*ins, ms.chunk_size)
-        design = "mma" if dtype == torch.bfloat16 else "cuda_core"
-        if read_ssd_variants()[design] != before[design] + 1:
-            fail(f"SSDScan {dname} forward did not run the {design} kernel")
-        yp = SSD.ssd_plain(*ins, chunk=ms.chunk_size)
-        go = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
-        got = torch.autograd.grad(y, ins, go)
-        want = torch.autograd.grad(yp, ins, go)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("x", "dt", "A", "B", "C", "D"), got, want):
-            err = (a.float() - b.float()).abs().max().item()
-            ok = torch.allclose(a.float(), b.float(), atol=tol, rtol=tol)
-            print(f"  {dname:8s} train d{name} (autograd Function) max_abs_err={err:.3e} "
-                  f"tol={tol:g} {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"SSDScan backward disagrees: {dname} d{name} {err}")
-        del ins, y, yp, go, got, want
+        chunk = case[-1]
+        ins = [t.detach().requires_grad_(True) for t in ssd_inputs(*case, dtype)]
+        design = ssd_design(ins, chunk)
+        want = ("mma" if dtype == torch.bfloat16 else "cuda_core") if label == "train" \
+            else "cuda_core"
+        if design != want:
+            fail(f"SSD.plan sends the {dname} {label} op call to {design}, expected {want}")
+        go = torch.randn(ins[0].shape, generator=gen, device=dev).to(dtype)
+        hold_op(torch, TS, f"ssd_scan {dname} {label}",
+                lambda *a: SSD.ssd_scan_op(*a, chunk)[0],
+                lambda *a: SSD.ssd_plain(*a, chunk=chunk),
+                ins, ("x", "dt", "A", "B", "C", "D"), go, SSD_TOL[dname],
+                read_ssd_variants, {design: 1}, compiled)
+        del ins, go
     torch.cuda.empty_cache()
 
     # ---- 6-7. full-width serve; decode against prefill ---------------------
@@ -2354,6 +2629,93 @@ def main() -> None:
               f"mma/bound {r['ms'] / bound_ms:.1f}; card {card}", flush=True)
         del ins, outs
     print(f"  ssd_scan registers and spills (-Xptxas -v): {ssd_regs}", flush=True)
+    # Phase 21's arch-sweep shapes, one a kernel: flash attention at the lm
+    # trial's compute-probe call (bf16, head_dim 16: CUDA-core; SDPA
+    # is_causal beside it) and the SSD scan at the ssm trial's (d_state 8:
+    # CUDA-core). Bytes and operations counted as in the rows above.
+    (label, (B, Sq, Skv, nh, nkv, dh)), = [
+        x for kw in ARCH_SWEEP_POINTS[:1]
+        for x in arch_sweep_shapes(SW, MD, kw)[0] if x[0].endswith("compute")]
+    q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, torch.bfloat16)
+    q_pos, kv_pos = tail_pos(Sq, Skv)
+    spec = AttnSpec(causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, is_causal=True)
+    if not torch.allclose(lib.transpose(1, 2).float(), ref.float(),
+                          atol=TOL["bfloat16"], rtol=TOL["bfloat16"]):
+        fail(f"SDPA is_causal is not the {label} row's function")
+    mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ref, q_pos, kv_pos))
+    bound_ms, bound_by = bound(n_bytes, 4 * B * nh * dh * int(mask.sum().item()),
+                               "bfloat16")
+    design = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype)
+    rows[label] = {
+        "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
+        "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, is_causal=True)),
+        "library_call": "sdpa is_causal", "bound_ms": bound_ms, "bound_by": bound_by,
+        "causal": True, "design": design.variant, "shape": [B, Sq, Skv, nh, nkv, dh]}
+    r = rows[label]
+    print(f"  {label:16s} q [{B},{Sq},{nh},{dh}] kv {Skv} x {nkv} bf16 causal "
+          f"{design.variant}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"sdpa is_causal {r['library_ms']:.4f} ms, bound {bound_ms:.6f} ms by "
+          f"{bound_by}; card {card}", flush=True)
+    del q, k, v, qt, kt, vt, ref, lib, mask
+    (label, case), = [x for kw in ARCH_SWEEP_POINTS[2:]
+                      for x in arch_sweep_shapes(SW, MD, kw)[1]
+                      if x[0].endswith("compute")]
+    b, l, h, p, g, n, Q = case
+    ins = ssd_inputs(*case, torch.bfloat16)
+    outs = SSD.ssd_scan(*ins, Q)
+    n_bytes = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    pairs = Q * (Q + 1) // 2
+    bound_ms, bound_by = bound(n_bytes, b * h * (l // Q) * (2 * pairs * (n + p)
+                                                             + 4 * Q * p * n),
+                               "bfloat16")
+    rows[f"{label}_ssd"] = {
+        "ms": time_ms(lambda: SSD.ssd_scan(*ins, Q)), "design": ssd_design(ins, Q),
+        "plain_ms": time_ms(lambda: SSD.ssd_plain(*ins, chunk=Q, return_state=True)),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": list(case)}
+    r = rows[f"{label}_ssd"]
+    print(f"  {label:16s} x [{b},{l},{h},{p}] B/C [{b},{l},{g},{n}] chunk {Q} bf16 "
+          f"{r['design']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library none, bound {bound_ms:.6f} ms by {bound_by}; card {card}", flush=True)
+    del ins, outs
+    # What the custom op's dispatch adds to a call: host microseconds a call
+    # of the kernel's wrapper alone and of the op the model calls
+    # (``FA.attention``), without grads, at qwen's decode shape, 200 calls
+    # back to back and one synchronise, in the order wrapper, op, op,
+    # wrapper. The decode loops are host-bound, so a layer pays this.
+    dfull = get_config(ARCH)
+    dshape = (BATCH, 1, PROMPT + GEN, dfull.n_heads, dfull.n_kv_heads,
+              dfull.get_head_dim())
+    q, k, v = inputs(*dshape, torch.bfloat16)
+    q_pos, kv_pos = tail_pos(1, PROMPT + GEN)
+    spec = AttnSpec()
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    with torch.no_grad():
+        calls = {"wrapper": lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec),
+                 "op": lambda: FA.attention(q, k, v, q_pos, kv_pos, spec)}
+        order = ("wrapper", "op", "op", "wrapper")
+        got = [(name, host_us(calls[name])) for name in order]
+    rows["op_dispatch"] = {f"{name}_us": [t for n, t in got if n == name]
+                           for name in calls}
+    rows["op_dispatch"]["shape"] = list(dshape)
+    print(f"  op dispatch      host us a call at q {list(dshape)} bf16 (no grad): "
+          f"{', '.join(f'{n} {t:.2f}' for n, t in got)}; card {card}", flush=True)
+    del q, k, v
     # What the mma kernel's time is made of: 128 blocks (batch 4 x 32 heads,
     # one wave on 132 SMs) over 1, 2 and 4 chunks of 256; a line through them
     # splits a call into a fixed cost and a cost per chunk (a block's copies,
@@ -2372,14 +2734,14 @@ def main() -> None:
           f"{ssd_cost} ms; fixed {ssd_fixed:.4f} ms + {per_chunk:.4f} ms per chunk of "
           f"{ms.chunk_size}; card {card}", flush=True)
     rows["ssd_cost"] = {**ssd_cost, "fixed_ms": ssd_fixed, "per_chunk_ms": per_chunk}
-    # The training path's backward has no kernel: SSDScan recomputes the plain
+    # The training path's backward has no kernel: the op recomputes the plain
     # version under autograd. Its time per layer, for the step's breakdown.
     ins = [t.detach().requires_grad_(True)
            for t in ssd_inputs(*ssd_train, torch.bfloat16)]
-    y, _ = SSD.SSDScan.apply(*ins, ms.chunk_size)
+    y, _ = SSD.ssd_scan_op(*ins, ms.chunk_size)
     go = torch.randn(y.shape, generator=gen, device=dev).to(torch.bfloat16)
     bwd_ms = time_ms(lambda: torch.autograd.grad(y, ins, go, retain_graph=True))
-    print(f"  ssd_backward     SSDScan backward at the train shape (plain recompute "
+    print(f"  ssd_backward     the SSD op's backward at the train shape (plain recompute "
           f"under autograd, no kernel): {bwd_ms:.4f} ms, x {mfull.n_layers} layers = "
           f"{bwd_ms * mfull.n_layers:.1f} ms/step; card {card}", flush=True)
     del ins, y, go
@@ -2430,7 +2792,10 @@ def main() -> None:
                       "full", reduced_size=True))
 
     # ---- 20. the sharded LM train step -----------------------------------------
-    sharded_lm_counts, (rq, rkv), sharded_lm_numbers = sharded_lm(torch, dev, card)
+    # ---- 21. the arch sweep, on phase 20's pool ----------------------------------
+    sharded_lm_counts, (rq, rkv), sharded_lm_numbers, (arch_counts, arch_rows) = \
+        sharded_lm(torch, dev, card,
+                   then=lambda pool: arch_sweep_phase(torch, dev, card, pool, env))
     phase(f"flash attention at the sharded step's per-rank shape q {list(rq)}")
     q, k, v = inputs(*rq[:2], rkv[1], rq[2], rkv[2], rq[3], torch.bfloat16)
     q_pos, kv_pos = tail_pos(rq[1], rkv[1])
@@ -2467,7 +2832,8 @@ def main() -> None:
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
              "mamba2_prefill_check": prefill_counts,
              "sharded_pipeline": sharded_counts, **lm_counts,
-             "sharded_lm_train": {k: sharded_lm_counts.get(k, 0) for k in counters}}
+             "sharded_lm_train": {k: sharded_lm_counts.get(k, 0) for k in counters},
+             "arch_sweep": arch_counts}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}
@@ -2485,11 +2851,11 @@ def main() -> None:
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
-        "library_ms": path["library_ms"],
+        "library_ms": path["library_ms"], "op_dispatch": rows["op_dispatch"],
         "rows": {k: r for k, r in rows.items()
                  if k.startswith(("decode_", "prefill", "train", "tile_cost",
                                   "gemma2_", "whisper_", "zamba2_", "llama4_",
-                                  "deepseek_")) and "ssd" not in k},
+                                  "deepseek_", "arch_")) and "ssd" not in k},
     }]
     for name, line in (("quantize_absmax", 92), ("quantize_int8", 101),
                        ("dequantize_int8", 120)):
@@ -2526,7 +2892,10 @@ def main() -> None:
                                         ("cuda_core", "ssd_scan.cu", "cuda_core_ms"))},
         "prefill_shape": rows["ssd_prefill"], "mma_cost": rows["ssd_cost"],
         "zamba2_shapes": {k: rows[k] for k in ("zamba2_ssd_train", "zamba2_ssd_prefill")},
+        "arch_sweep_shape": {k: r for k, r in rows.items()
+                             if k.startswith("arch_") and k.endswith("_ssd")},
     })
+    print(f"  arch sweep rows (phase 21): {json.dumps(arch_rows)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,18 @@ every rank. Every rank makes the mesh's process groups it does not have yet
 ``0 .. size-1`` then call ``job(ctx, *args)``, where ``ctx.mesh`` is their
 ``Mesh``, and the others skip it; then rank 0 gathers what each rank
 returned. A rank that raises fails the job: ``run`` raises ``RankError``
-naming it, after every rank has finished, so the world stays in step for the
-next job.
+naming it and carrying its traceback.
+
+A rank that raises may leave its peers waiting in the job's collectives, and
+a rank may die outright (a crash, an abort). Neither waits out the
+collectives' ``TIMEOUT``: a spawned rank reports its error to rank 0 at once
+through a queue beside the process group, a watcher thread in rank 0 reads
+that queue and the ranks' liveness while a job runs, and on a failure it
+stops the world: it kills every spawned rank, so whatever rank 0 waits in
+fails within moments. ``run`` then starts a fresh world (new processes, a new
+store, no groups) and raises ``RankError`` with every failing rank's
+traceback, so one fault fails one job and the next job runs on a world in
+step. A job that fails on every rank alike stops the world too.
 
 Every rank computes on ``device``: under ``cuda`` all ranks share card 0,
 under ``cpu`` they are CPU processes. gloo is the backend because NCCL
@@ -33,8 +43,10 @@ from __future__ import annotations
 
 import datetime
 import os
+import queue
 import shutil
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -81,7 +93,11 @@ def _cap_threads(world: int) -> Tuple[int, int]:
     return before
 
 
-def _run_job(ctx: RankContext, job) -> Tuple[bool, Any]:
+def _run_job(ctx: RankContext, job, errors=None) -> Tuple[bool, Any]:
+    """Run ``job`` on this rank; (True, result) or (False, message). A
+    spawned rank also puts the message on ``errors`` (rank 0's watcher)
+    before it returns, since its peers may be waiting for it in a
+    collective."""
     fn, args, axes = job
     make_groups(axes, ctx.groups)
     if ctx.rank >= mesh_size(axes):
@@ -89,16 +105,16 @@ def _run_job(ctx: RankContext, job) -> Tuple[bool, Any]:
     try:
         ctx.mesh = Mesh(axes, ctx.rank, ctx.groups)
         return True, fn(ctx, *args)
-    except Exception as e:          # the job fails; the world stays in step
-        # reported at once too: ranks still waiting in a collective for this
-        # one only return at the process group's timeout
-        traceback.print_exc()
+    except Exception as e:
         tail = "".join(traceback.format_exception(e)[-12:]).strip()
-        return False, f"rank {ctx.rank}: {type(e).__name__}: {e}\n{tail}"
+        msg = f"rank {ctx.rank}: {type(e).__name__}: {e}\n{tail}"
+        if errors is not None:
+            errors.put((ctx.rank, msg))
+        return False, msg
 
 
 def _serve(rank: int, world: int, init_file: str, device: str,
-           tf32: Tuple[bool, bool]) -> None:
+           tf32: Tuple[bool, bool], errors) -> None:
     """Rank ``rank``'s loop (spawned): take jobs until the None job."""
     _cap_threads(world)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -111,11 +127,53 @@ def _serve(rank: int, world: int, init_file: str, device: str,
             dist.broadcast_object_list(box, src=0)
             if box[0] is None:
                 break
-            dist.gather_object(_run_job(ctx, box[0]), None, dst=0)
+            dist.gather_object(_run_job(ctx, box[0], errors), None, dst=0)
     finally:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
         dist.destroy_process_group()
+
+
+class _Watcher(threading.Thread):
+    """While a job runs: the spawned ranks' errors (from their queue) and
+    deaths. On the first, it kills every spawned rank (``stop``), so rank
+    0 cannot wait for a failed world; ``failures`` lists what it saw."""
+
+    def __init__(self, pool: "Pool"):
+        super().__init__(daemon=True, name="pool-watcher")
+        self.pool = pool
+        self.failures: List[str] = []
+        self.done = threading.Event()
+
+    def run(self) -> None:
+        pool = self.pool
+        while not self.done.is_set():
+            try:
+                self.failures.append(pool._errors.get(timeout=0.05)[1])
+            except queue.Empty:
+                pass
+            for r, p in enumerate(pool._procs, start=1):
+                if not p.is_alive() and not self.failures:
+                    self.failures.append(f"rank {r}: died (exit code "
+                                         f"{p.exitcode})")
+            if self.failures:
+                time.sleep(0.5)          # other ranks' reports of the fault
+                while True:
+                    try:
+                        self.failures.append(pool._errors.get_nowait()[1])
+                    except queue.Empty:
+                        break
+                pool._kill()
+                return
+
+    def stop(self) -> List[str]:
+        self.done.set()
+        self.join()
+        while True:                      # reports that came in meanwhile
+            try:
+                self.failures.append(self.pool._errors.get_nowait()[1])
+            except queue.Empty:
+                return self.failures
 
 
 class Pool:
@@ -134,18 +192,28 @@ class Pool:
             # build the kernel libraries once, before the ranks load them
             from repro_torch.kernels import quantize as Q
             Q.build()
+        self._saved = _cap_threads(self.world)
+        self._procs: List = []
+        self._dir = None
+        self._closed = False
+        self.starts = 0             # worlds started: 1 + the restarts
+        self._start()
+
+    def _start(self) -> None:
+        """Spawn ranks 1 .. world-1 and join them in a new default group
+        (a new store file), with no subgroups yet."""
         self._dir = tempfile.mkdtemp(prefix="repro_torch_pool_")
         init_file = os.path.join(self._dir, "store")
-        self._saved = _cap_threads(self.world)
         # every rank computes as the caller does: TF32 on or off alike
         tf32 = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
         spawn = mp.get_context("spawn")
+        self._errors = spawn.Queue()
         self._procs = [spawn.Process(target=_serve, name=f"rank{r}",
                                      args=(r, self.world, init_file,
-                                           str(self.device), tf32))
+                                           str(self.device), tf32,
+                                           self._errors))
                        for r in range(1, self.world)]
-        self._closed = False
         try:
             for p in self._procs:
                 p.start()
@@ -156,10 +224,12 @@ class Pool:
             self._stop()
             raise
         self.ctx = RankContext(0, self.world, self.device)
+        self.starts += 1
 
     def run(self, fn: Callable, *args, mesh: Mapping[str, int]) -> List[Any]:
         """``fn(ctx, *args)`` on the ranks of ``mesh`` (axis name → size);
-        their results, in rank order. Raises ``RankError`` if any raised."""
+        their results, in rank order. Raises ``RankError`` if any raised
+        or died, after starting a fresh world for the next job."""
         if self._closed:
             raise RuntimeError("the pool is closed")
         ranks = mesh_size(mesh)
@@ -167,13 +237,39 @@ class Pool:
             raise ValueError(f"a mesh of {ranks} ranks asked of a pool of "
                              f"{self.world}")
         job = (fn, args, dict(mesh))
-        dist.broadcast_object_list([job], src=0)
+        watcher = _Watcher(self)
+        watcher.start()
         out = [None] * self.world
-        dist.gather_object(_run_job(self.ctx, job), out, dst=0)
-        failed = [msg for ok, msg in out[:ranks] if not ok]
+        mine = (True, None)
+        try:
+            dist.broadcast_object_list([job], src=0)
+            mine = _run_job(self.ctx, job)
+            if mine[0]:
+                dist.gather_object(mine, out, dst=0)
+        except Exception as e:          # a peer stopped: the watcher's fault
+            mine = (False, f"rank 0: {type(e).__name__}: {e}")
+        if not mine[0] and not watcher.failures:
+            time.sleep(0.5)             # the peers' reports of the same fault
+            self._kill()                # rank 0's own fault: stop the world
+        failed = watcher.stop()
+        failed += [r[1] for r in [mine] + out[1:ranks]
+                   if r is not None and not r[0] and r[1] not in failed]
         if failed:
+            self._restart()
             raise RankError("; ".join(failed))
         return [res for _, res in out[:ranks]]
+
+    def _kill(self) -> None:
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+
+    def _restart(self) -> None:
+        """After a failed job: stop what is left of the world and start a
+        fresh one."""
+        self._stop(restore=False)
+        self._closed = False
+        self._start()
 
     def close(self) -> None:
         if self._closed:
@@ -184,7 +280,7 @@ class Pool:
         finally:
             self._stop()
 
-    def _stop(self) -> None:
+    def _stop(self, restore: bool = True) -> None:
         self._closed = True
         deadline = time.monotonic() + 60       # for all ranks together
         for p in self._procs:
@@ -195,9 +291,10 @@ class Pool:
                 p.join(timeout=10)
         if dist.is_initialized():
             dist.destroy_process_group()
-        torch.set_num_threads(self._saved[0])
-        import torch._inductor.config as inductor_config
-        inductor_config.compile_threads = self._saved[1]
+        if restore:
+            torch.set_num_threads(self._saved[0])
+            import torch._inductor.config as inductor_config
+            inductor_config.compile_threads = self._saved[1]
         shutil.rmtree(self._dir, ignore_errors=True)
 
     def __enter__(self) -> "Pool":

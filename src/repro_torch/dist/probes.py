@@ -30,6 +30,13 @@ def read_launches(ctx=None) -> Dict[str, int]:
     return {k: getattr(mod, attr) for k, (mod, attr) in _COUNTERS.items()}
 
 
+def launch_snapshot(ctx=None) -> Dict:
+    """``read_launches`` with flash attention's and the SSD scan's launches
+    by design ("flash_by_design", "ssd_by_design")."""
+    return {**read_launches(), "flash_by_design": dict(FA.LAUNCHES_BY_VARIANT),
+            "ssd_by_design": dict(SSD.LAUNCHES_BY_VARIANT)}
+
+
 def read_designs(ctx=None) -> Dict[str, int]:
     """This rank's flash attention launches by design since the last reset."""
     return dict(FA.LAUNCHES_BY_VARIANT)
@@ -147,6 +154,48 @@ def sharded_bodies(ctx, cfg, tcfg, strategy, seed: int,
             "err": [float((a - b).abs().max())
                     for a, b in zip(grads[True], grads[False])],
             "loss": losses}
+
+
+def sharded_modes(ctx, cfg, tcfg, strategy, seed: int,
+                  batch: Dict[str, np.ndarray], mode: str, steps: int = 2
+                  ) -> Dict:
+    """``steps`` steps of the overlap body eager and compiled (``mode``
+    jit or jit_donate), each from the same init (``seed``) on
+    this rank's rows of ``batch``: per mode the losses and this rank's
+    kernel launches per step (the compiled mode's after its warm-up step,
+    the compile), the compiled mode's graph breaks and graphs, and the
+    largest difference of the two modes' parameter slices after the last
+    step."""
+    from torch._dynamo.utils import counters
+
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import make_sharded_train_step
+    from repro_torch.tree import tree_leaves
+    full = MD.init_model(cfg, seed=seed, device=ctx.device)
+    out, params = {}, {}
+    for m in ("eager", mode):
+        torch.compiler.reset()
+        counters.clear()
+        state, rows = _lm_rank_inputs(ctx, cfg, tcfg, strategy, seed, batch,
+                                      full)
+        step = make_sharded_train_step(cfg, tcfg, ctx.mesh, strategy,
+                                       overlap=True, mode=m)
+        state, metrics = step(state, rows)                 # the compile
+        losses = [float(metrics["loss"])]
+        before = read_launches()
+        for _ in range(steps - 1):
+            state, metrics = step(state, rows)
+            losses.append(float(metrics["loss"]))
+        launches = {k: (v - before[k]) / max(steps - 1, 1)
+                    for k, v in read_launches().items()}
+        out[m] = {"losses": losses, "launches": launches,
+                  "graph_breaks": sum(counters["graph_break"].values()),
+                  "graphs": counters["stats"]["unique_graphs"]}
+        params[m] = [t.detach().float().clone() for t in tree_leaves(state.params)]
+        del state
+    out["param_diff"] = max(float((a - b).abs().max())
+                            for a, b in zip(params["eager"], params[mode]))
+    return out
 
 
 def sharded_train_profile(ctx, cfg, tcfg, strategy, seed: int,

@@ -337,13 +337,26 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def _waited(t: torch.Tensor) -> torch.Tensor:
+    """A functional collective's result, waited for: eagerly, funcol hands
+    back an ``AsyncCollectiveTensor`` whose collective is still in flight
+    on gloo's worker threads until an op needs its values (views do not),
+    so a result that is dropped, or only viewed, is never waited and its
+    work outlives the code that issued it; every eager collective of the
+    port ends here instead. Under ``torch.compile`` the traced collective
+    is already a plain tensor with its wait in the graph."""
+    if isinstance(t, funcol.AsyncCollectiveTensor):
+        return t.wait()
+    return t
+
+
 def all_reduce(x: torch.Tensor, op: str,
                group: Optional[dist.ProcessGroup]) -> torch.Tensor:
     """Functional all-reduce of ``x`` (``op`` "sum" or "max") over
-    ``group``; ``x`` itself on a single rank (``group`` None)."""
+    ``group``, waited for; ``x`` itself on a single rank (``group`` None)."""
     if group is None:
         return x
-    return funcol.all_reduce(x, op, group)
+    return _waited(funcol.all_reduce(x, op, group))
 
 
 def gather_to_full(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
@@ -364,7 +377,7 @@ def gather_to_full(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
             if group is None:
                 continue
             block = x.movedim(dim, 0).contiguous()
-            full = funcol.all_gather_tensor(block.cpu(), 0, group)
+            full = _waited(funcol.all_gather_tensor(block.cpu(), 0, group))
             x = full.to(x.device).movedim(0, dim)
     return x
 

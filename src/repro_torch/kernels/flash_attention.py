@@ -20,8 +20,10 @@ dtypes alone (so it runs the same on the CPU):
 ``flash_attention`` launches on CUDA tensors and raises on any other;
 ``attention_plain`` is the O(Sq·Skv) PyTorch counterpart of the reference's
 ``attend_naive``, and ``attention_splitkv_plain`` mirrors the split-KV
-kernel's partials and combine for the tests. ``kernels.ops.attention`` picks
-between kernel and plain version by the tensors' device.
+kernel's partials and combine for the tests. ``kernels.ops.attention`` takes
+the plain version for CPU tensors and ``attention`` (the
+``repro_torch::flash_attention`` custom op, whose CPU implementation is the
+plain version) for any other, eagerly and under ``torch.compile``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import ctypes
 import dataclasses
 import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -288,35 +291,86 @@ def flash_attention(q, k, v, q_pos, kv_pos, spec) -> torch.Tensor:
     return out
 
 
-# ---------------------------------------------------------------------------
-# Autograd
-# ---------------------------------------------------------------------------
-
-class FlashAttention(torch.autograd.Function):
-    """Attention whose forward is the kernel and whose backward recomputes
-    the plain version under autograd and differentiates that.
+def plain_grads(q, k, v, q_pos, kv_pos, spec, grad_out, need=(True,) * 3):
+    """The grads of q, k, v (those ``need`` asks for) of ``attention_plain``
+    against ``grad_out``, recomputed under autograd: the backward of the
+    ``repro_torch::flash_attention`` op.
 
     The reference has no backward kernel either (its Pallas kernel is
     forward-only); its CPU path differentiates the blockwise attention
     under ``jax.checkpoint``, which recomputes it in the backward
     (``repro.models.attention.attend_blockwise``). So nothing of the
     forward is saved but the inputs, and the backward holds the O(Sq·Skv)
-    scores of one call at a time. A backward kernel is later work.
-    """
+    scores of one call at a time. A backward kernel is later work."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
+        out = attention_plain(*qkv, q_pos, kv_pos, spec)
+        wrt = [t for t, n in zip(qkv, need) if n]
+        return torch.autograd.grad(out, wrt, grad_out)
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_pos, kv_pos, spec):
-        ctx.save_for_backward(q, k, v, q_pos, kv_pos)
-        ctx.spec = spec
-        return flash_attention(q, k, v, q_pos, kv_pos, spec)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, q_pos, kv_pos = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
-            out = attention_plain(*qkv, q_pos, kv_pos, ctx.spec)
-            wrt = [t for t, n in zip(qkv, need) if n]
-            got = iter(torch.autograd.grad(out, wrt, grad_out))
-        return (*(next(got) if n else None for n in need), None, None, None)
+# ---------------------------------------------------------------------------
+# The custom op: what the model calls
+# ---------------------------------------------------------------------------
+#
+# ``repro_torch::flash_attention`` is the forward as a ``torch.library``
+# custom op, what every call on the card goes through, eager or compiled: a
+# ``torch.compile(fullgraph=True)`` graph of a train step holds it as one
+# node. Its CUDA implementation is ``flash_attention`` (the kernel, counted
+# in the launch counters on every call of the compiled code too, since the
+# count is inside the implementation), its CPU implementation the plain
+# version. Its backward is the plain recompute (``plain_grads``) of the
+# inputs that need a grad, on either device: plain PyTorch that a compiled
+# graph's backward holds op by op. The spec travels as its four fields.
+
+class _Spec(NamedTuple):
+    causal: bool
+    window: int
+    logit_softcap: float
+    scale: float
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                       window: int, logit_softcap: float, scale: float
+                       ) -> torch.Tensor:
+    """The kernel on any device but the CPU (it launches or raises)."""
+    return flash_attention(q, k, v, q_pos, kv_pos,
+                           _Spec(causal, window, logit_softcap, scale))
+
+
+@flash_attention_op.register_kernel("cpu")
+def _(q, k, v, q_pos, kv_pos, causal, window, logit_softcap, scale):
+    return attention_plain(q, k, v, q_pos, kv_pos,
+                           _Spec(causal, window, logit_softcap, scale)
+                           ).contiguous()
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, q_pos, kv_pos, causal, window, logit_softcap, scale):
+    return q.new_empty(q.shape)              # contiguous, as the kernel's
+
+
+def _op_setup_context(ctx, inputs, output):
+    q, k, v, q_pos, kv_pos, *ctx.spec = inputs
+    ctx.save_for_backward(q, k, v, q_pos, kv_pos)
+
+
+def _op_backward(ctx, grad_out):
+    q, k, v, q_pos, kv_pos = ctx.saved_tensors
+    need = ctx.needs_input_grad[:3]
+    got = iter(plain_grads(q, k, v, q_pos, kv_pos, _Spec(*ctx.spec), grad_out,
+                           need))
+    return (*(next(got) if n else None for n in need), *(None,) * 6)
+
+
+flash_attention_op.register_autograd(_op_backward,
+                                     setup_context=_op_setup_context)
+
+
+def attention(q, k, v, q_pos, kv_pos, spec) -> torch.Tensor:
+    """``repro_torch::flash_attention`` with ``spec`` (an ``AttnSpec``)."""
+    return flash_attention_op(q, k, v, q_pos, kv_pos, bool(spec.causal),
+                              int(spec.window), float(spec.logit_softcap),
+                              float(spec.scale))

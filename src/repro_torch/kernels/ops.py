@@ -13,21 +13,22 @@ from repro_torch.kernels import ssd_scan as SSD
 
 
 def attention(q, k, v, q_pos, kv_pos, spec):
-    """GQA attention (``repro.kernels.ops.attention``). On the card the
-    forward is the kernel and the backward recomputes the plain version
-    (``FA.FlashAttention``)."""
+    """GQA attention (``repro.kernels.ops.attention``). On the card, eagerly
+    and under ``torch.compile``, the ``repro_torch::flash_attention`` custom
+    op, which a compiled graph holds as one node: its forward is the kernel
+    and its backward recomputes the plain version."""
     if q.device.type == "cpu":
         return FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
-    return FA.FlashAttention.apply(q, k, v, q_pos, kv_pos, spec)
+    return FA.attention(q, k, v, q_pos, kv_pos, spec)
 
 
 def ssd_chunked(x, dt, A, B, C, D, chunk: int = 256):
     """Mamba2 SSD chunked scan (``repro.kernels.ops.ssd_chunked``):
-    (y [b,l,h,p], final state [b,h,p,n]). On the card the forward is the
-    kernel and the backward recomputes the plain version (``SSD.SSDScan``)."""
+    (y [b,l,h,p], final state [b,h,p,n]). On the card the
+    ``repro_torch::ssd_scan`` custom op (as ``attention``)."""
     if x.device.type == "cpu":
         return SSD.ssd_plain(x, dt, A, B, C, D, chunk=chunk, return_state=True)
-    return SSD.SSDScan.apply(x, dt, A, B, C, D, chunk)
+    return SSD.ssd_scan_op(x, dt, A, B, C, D, chunk)
 
 
 def absmax(*xs: torch.Tensor) -> torch.Tensor:

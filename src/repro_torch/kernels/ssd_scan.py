@@ -1,6 +1,5 @@
 """Mamba2 SSD chunked scan: hand-written CUDA kernels for Hopper, their
-ctypes wrappers, launch counters, autograd Function and plain PyTorch
-versions.
+ctypes wrappers, launch counters, custom op and plain PyTorch versions.
 
 The kernels replace the Pallas TPU kernel of ``repro.kernels.ssd_scan``; the
 note at the top of each source says how. They are compiled with ``nvcc`` for
@@ -24,14 +23,17 @@ product and the carried state are rounded to bf16 where the reference rounds
 them, while the CUDA-core kernel keeps both in fp32 as the Pallas kernel
 does, so the two differ by more than the rounding of y in bf16.
 ``ssd_mma_plain`` mirrors the ``mma`` kernel's passes and rounding points
-(tests and chip_smoke only). ``kernels.ops.ssd_chunked`` picks between kernel
-and plain version by the tensors' device.
+(tests and chip_smoke only). ``kernels.ops.ssd_chunked`` takes the plain
+version for CPU tensors and ``ssd_scan_op`` (the ``repro_torch::ssd_scan``
+custom op, whose CPU implementation is the plain version) for any other,
+eagerly and under ``torch.compile``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import os
+from typing import Tuple
 
 import torch
 
@@ -365,38 +367,73 @@ def launch(chosen: Plan, x, dt, A, B, C, D, chunk: int):
     return y, state
 
 
-# ---------------------------------------------------------------------------
-# Autograd
-# ---------------------------------------------------------------------------
-
-class SSDScan(torch.autograd.Function):
-    """The SSD scan whose forward is the kernel and whose backward recomputes
-    the plain version under autograd and differentiates that.
+def plain_grads(inputs, chunk: int, grad_y, grad_state, need=(True,) * 6):
+    """The grads of (x, dt, A, B, C, D) (those ``need`` asks for) of
+    ``ssd_plain`` against ``grad_y`` and ``grad_state`` (either may be
+    None), recomputed under autograd (None for an input the outputs do not
+    reach): the backward of the ``repro_torch::ssd_scan`` op.
 
     The reference's Pallas kernel is forward-only (its training path on the
     CPU differentiates ``ssd_reference``), so there is no backward kernel to
     port. Nothing of the forward is saved but the inputs. The final state is
-    the second output; training does not use it and its gradient comes in as
-    None."""
+    the second output; training does not use it and its gradient comes in
+    as None."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(k) for t, k in zip(inputs, need)]
+        y, state = ssd_plain(*ins, chunk=chunk, return_state=True)
+        outs = [(o, go) for o, go in ((y, grad_y), (state, grad_state))
+                if go is not None]
+        wrt = [t for t, k in zip(ins, need) if k]
+        return torch.autograd.grad([o for o, _ in outs], wrt,
+                                   [go for _, go in outs], allow_unused=True)
 
-    @staticmethod
-    def forward(ctx, x, dt, A, B, C, D, chunk):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, B, C, D)
-        ctx.chunk = chunk
-        return ssd_scan(x, dt, A, B, C, D, chunk)
 
-    @staticmethod
-    def backward(ctx, grad_y, grad_state):
-        inputs = ctx.saved_tensors
-        need = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(k) for t, k in zip(inputs, need)]
-            y, state = ssd_plain(*ins, chunk=ctx.chunk, return_state=True)
-            outs = [(o, go) for o, go in ((y, grad_y), (state, grad_state))
-                    if go is not None]
-            wrt = [t for t, k in zip(ins, need) if k]
-            got = iter(torch.autograd.grad([o for o, _ in outs], wrt,
-                                           [go for _, go in outs],
-                                           allow_unused=True))
-        return (*(next(got) if k else None for k in need), None)
+# ---------------------------------------------------------------------------
+# The custom op: what the model calls
+# ---------------------------------------------------------------------------
+#
+# ``repro_torch::ssd_scan`` is the forward as a ``torch.library`` custom op,
+# what every call on the card goes through, eager or compiled: a
+# ``torch.compile(fullgraph=True)`` graph holds it as one node. Its CUDA
+# implementation is ``ssd_scan`` (the kernel ``plan`` picks, counted inside
+# the implementation, so compiled code counts every launch), its CPU
+# implementation ``ssd_plain``. Its backward is the plain recompute
+# (``plain_grads``) of the inputs that need a grad, on either device: plain
+# PyTorch that a compiled graph's backward holds op by op.
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, chunk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state): the kernel on any device but the CPU (it launches
+    or raises)."""
+    return ssd_scan(x, dt, A, B, C, D, chunk)
+
+
+@ssd_scan_op.register_kernel("cpu")
+def _(x, dt, A, B, C, D, chunk):
+    y, state = ssd_plain(x, dt, A, B, C, D, chunk=chunk, return_state=True)
+    return y.contiguous(), state.contiguous()     # as the kernel's
+
+
+@ssd_scan_op.register_fake
+def _(x, dt, A, B, C, D, chunk):
+    b, l, h, p = x.shape
+    return (x.new_empty((b, l, h, p)),
+            x.new_empty((b, h, p, B.shape[3])))
+
+
+def _op_setup_context(ctx, inputs, output):
+    ctx.set_materialize_grads(False)
+    *tensors, ctx.chunk = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _op_backward(ctx, grad_y, grad_state):
+    need = ctx.needs_input_grad[:6]
+    got = iter(plain_grads(ctx.saved_tensors, ctx.chunk, grad_y, grad_state,
+                           need))
+    return (*(next(got) if k else None for k in need), None)
+
+
+ssd_scan_op.register_autograd(_op_backward, setup_context=_op_setup_context)

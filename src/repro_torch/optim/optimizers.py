@@ -60,13 +60,23 @@ def adamw_init(params, tcfg: TrainConfig) -> OptState:
     return OptState(0, tree_map(zeros, params), tree_map(zeros, params))
 
 
+def adamw_corrections(tcfg: TrainConfig, step: int) -> Tuple[float, float]:
+    """AdamW's bias corrections (1 − b1^t, 1 − b2^t) for update ``step``
+    (from 1), in fp32 on the host as the reference computes them."""
+    return (float(np.float32(1.0) - np.float32(tcfg.beta1) ** np.float32(step)),
+            float(np.float32(1.0) - np.float32(tcfg.beta2) ** np.float32(step)))
+
+
 @torch.no_grad()
 def adamw_update(params, grads, state: OptState, tcfg: TrainConfig,
-                 lr: float) -> Tuple[Any, OptState]:
+                 lr: float, corrections=None) -> Tuple[Any, OptState]:
+    """``lr`` and ``corrections`` (``adamw_corrections`` of this update,
+    computed from ``state.step`` when None) may be 0-d tensors: a compiled
+    step passes them so that its graph does not hold the step count."""
     b1, b2, eps, wd = tcfg.beta1, tcfg.beta2, tcfg.eps, tcfg.weight_decay
     step = state.step + 1
-    c1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(step))
-    c2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(step))
+    c1, c2 = (adamw_corrections(tcfg, step) if corrections is None
+              else corrections)
 
     def upd(p, g, m, v):
         gf = g.float()

@@ -1,5 +1,6 @@
-"""The paper's measured-time experiment: the LeNet-5 hyperparameter sweep,
-single-device half (``repro.perf.sweep``'s LeNet path).
+"""The paper's measured-time experiment: the LeNet-5 hyperparameter sweep
+and its cross-architecture counterpart (``repro.perf.sweep``; the arch
+half's notes stand above ``ArchPoint``).
 
 Per the paper (§IV.D): random-sample the Table-1 space, measure the time
 of a single training iteration (median of 3, after a warm-up iteration),
@@ -71,9 +72,11 @@ from repro_torch.launch.serve import sync
 from repro_torch.models.layers import LocalDim
 from repro_torch.models.lenet import (dropout_noise, feature_dims, init_lenet,
                                       lenet_loss)
+from repro_torch.obs.trace import current_recorder
 from repro_torch.perf.costmodel import (Calibration, load_calibration,
                                         mesh_axes_for)
-from repro_torch.perf.features import lenet_features
+from repro_torch.perf.features import get_spec, lenet_features
+from repro_torch.tree import tree_leaves
 
 MODES = ("jit", "jit_donate", "eager")
 
@@ -413,19 +416,21 @@ def measure_trial(cfg: LeNet5Config, mode: str, *, n_iters: int = 3,
     it = make_iteration(cfg, mode)
 
     p = params
-    sync(dev)
-    t0 = time.perf_counter()
-    p, _ = it(p, batch, rng)                      # warm-up / compile
-    sync(dev)
-    if warmup_s is not None:
-        warmup_s.append(time.perf_counter() - t0)
-    times = []
-    for _ in range(n_iters):
-        t0 = time.perf_counter()
-        p, loss = it(p, batch, rng)
+    rec = current_recorder()
+    with rec.span("compute_probe", category="sweep", mode=mode):
         sync(dev)
-        times.append(time.perf_counter() - t0)
-    measured = float(statistics.median(times))
+        t0 = time.perf_counter()
+        p, _ = it(p, batch, rng)                  # warm-up / compile
+        sync(dev)
+        if warmup_s is not None:
+            warmup_s.append(time.perf_counter() - t0)
+        times = []
+        for _ in range(n_iters):
+            t0 = time.perf_counter()
+            p, loss = it(p, batch, rng)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        measured = float(statistics.median(times))
 
     comm = comm_seconds(cfg, pb, calibration=cal)
     t_sim = measured * 1e3 + comm * 1e3
@@ -434,8 +439,10 @@ def measure_trial(cfg: LeNet5Config, mode: str, *, n_iters: int = 3,
         if mode == "eager":
             skip = SKIP_EAGER
         else:
-            t_meas, skip = measure_sharded_trial(cfg, mode, n_iters=n_iters,
-                                                 seed=seed, pool=pool)
+            with rec.span("sharded_probe", category="sweep", mode=mode):
+                t_meas, skip = measure_sharded_trial(cfg, mode,
+                                                     n_iters=n_iters,
+                                                     seed=seed, pool=pool)
             if t_meas is not None:
                 t_meas *= 1e3
     return SweepRow(features=lenet_features(cfg), mode=mode,
@@ -462,13 +469,18 @@ def run_sweep(n_trials: int = 300, modes: Sequence[str] = MODES,
     rng = np.random.default_rng(seed)
     rows: List[Dict] = []
     t0 = time.time()
+    rec = current_recorder()        # disabled default: spans are no-ops
     for i in range(n_trials):
         cfg = sample_config(rng)
         mode = modes[i % len(modes)]
         try:
-            row = measure_trial(cfg, mode, seed=seed + i, sharded=sharded,
-                                calibration=cal, device=dev,
-                                warmup_s=warmup_s, pool=pool)
+            with rec.span("trial", category="sweep", index=i, mode=mode,
+                          n_devices=cfg.n_devices,
+                          strategy=str(cfg.strategy),
+                          batch=cfg.batch_size):
+                row = measure_trial(cfg, mode, seed=seed + i,
+                                    sharded=sharded, calibration=cal,
+                                    device=dev, warmup_s=warmup_s, pool=pool)
         except Exception as e:      # a pathological config; record & go on
             rows.append({"error": f"{type(e).__name__}: {e}", "mode": mode,
                          "features": lenet_features(cfg)})
@@ -536,3 +548,355 @@ def split_rows(rows: List[Dict], mode: str, n_fit: int = 900,
     f_t = [r["features"] for r in test]
     return (f_s, [fit_target_ms(r, source) for r in fit],
             f_t, [fit_target_ms(r, source) for r in test])
+
+
+# ---------------------------------------------------------------------------
+# Cross-architecture sweep: lm / moe / ssm families
+# ---------------------------------------------------------------------------
+#
+# The same measured-vs-simulated protocol as the LeNet sweep, with a
+# family-preserving ``reduced()`` of a real architecture as the subject and
+# the LM train step as the iteration: the compute probe is the compiled
+# single-device step (``train.step.make_train_step(mode=...)``) on the
+# per-device sub-batch, the sharded probe the compiled overlap body of
+# ``make_sharded_train_step`` over ``n_devices`` ranks of a ``Pool``
+# (registry-rule parameter shards, per-layer gathers and Megatron splits,
+# the wire-compressed gradient reduction). Intrinsics per family come from
+# the ``perf.features`` registry; extrinsics are shared with LeNet. A row
+# labelled "jit" or "jit_donate" was timed on a step that compiled with
+# ``fullgraph=True``: a point that does not compile raises there, and the
+# sweep records it as an error row with dynamo's reason.
+
+ARCH_N_DEVICES = (1, 2, 4, 8)
+ARCH_BATCH_SIZES = (8, 16, 32)
+# wire formats the sharded LM step implements (``tcfg.grad_compression``):
+# int8 rides through the error-feedback collective on this path.
+ARCH_COMPRESSIONS = ("none", "bf16", "int8_ef")
+
+
+@dataclass(frozen=True)
+class ArchPoint:
+    """One sampled cross-architecture trial (the reference's, field for
+    field). Intrinsics a family does not use stay 0 and are absent from
+    that family's FeatureSpec."""
+    family: str
+    arch_id: str
+    seq_len: int
+    d_model: int
+    n_layers: int
+    d_ff: int = 0
+    n_experts: int = 0
+    top_k: int = 0
+    d_state: int = 0
+    n_devices: int = 1
+    batch_size: int = 8
+    strategy: str = "dp"
+    compression: str = "none"
+
+    @property
+    def wire_bits(self) -> int:
+        return WIRE_BITS[self.compression]
+
+    def model_config(self):
+        """The family-preserving ``reduced()`` ModelConfig this point
+        trains; intrinsics the reducer pins (MoE top_k, SSD state dim)
+        are re-opened so the sweep actually varies them."""
+        import dataclasses
+
+        from repro_torch.configs import get_config, reduced
+
+        cfg = reduced(get_config(self.arch_id), n_layers=self.n_layers,
+                      d_model=self.d_model, vocab=256,
+                      d_ff=self.d_ff or 128,
+                      n_experts=self.n_experts or 4,
+                      seq_cap=self.seq_len)
+        if self.top_k and cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, top_k=min(self.top_k, cfg.moe.n_experts)))
+        if self.d_state and cfg.ssm is not None:
+            cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, d_state=self.d_state))
+        return cfg
+
+    def features(self) -> Dict:
+        return get_spec(self.family).features(self)
+
+
+def sample_arch_point(family: str, rng: np.random.Generator) -> ArchPoint:
+    """Random point of ``family``'s intrinsic space × the shared extrinsic
+    grid: the reference's draws in the reference's order."""
+    aspec = get_spec(family)
+    intr = {k: int(rng.choice(v)) for k, v in aspec.intrinsic_space.items()}
+    return ArchPoint(family=family, arch_id=aspec.arch_id,
+                     n_devices=int(rng.choice(ARCH_N_DEVICES)),
+                     batch_size=int(rng.choice(ARCH_BATCH_SIZES)),
+                     strategy=str(rng.choice(DIST_STRATEGIES)),
+                     compression=str(rng.choice(ARCH_COMPRESSIONS)),
+                     **intr)
+
+
+def arch_mesh_axes(strategy: str, n_devices: int) -> Dict[str, int]:
+    """``mesh_axes_for`` plus a size-1 "data" axis when the strategy has
+    none: the LM sharded train step reduces gradients over the batch axes
+    and refuses a mesh without one, so tp meshes replicate the batch over
+    a degenerate data axis."""
+    axes = dict(mesh_axes_for(strategy, n_devices))
+    if "data" not in axes:
+        axes = {"data": 1, **axes}
+    return axes
+
+
+def arch_train_config(compression: str = "none"):
+    """The arch sweep's TrainConfig (the reference's): sgd, no remat, the
+    wire format ``compression`` (the compute probe's is "none": it is wire
+    format, not compute)."""
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(optimizer="sgd", grad_compression=compression,
+                       remat_policy="none")
+
+
+def _eager_steps(step, state, batch, steps: int):
+    """``steps`` steps of ``step`` from ``state`` on ``batch``: (the losses,
+    fp32 copies of the parameter leaves after the last)."""
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return losses, [t.detach().float().clone() for t in tree_leaves(state.params)]
+
+
+def param_gap(ref, params) -> float:
+    """The largest |difference| between the leaves ``ref`` (``_eager_steps``)
+    and ``params``'s, each leaf's relative to its largest |value| in
+    ``ref``."""
+    return max(float((a - b.float()).abs().max() / a.abs().max().clamp_min(1e-30))
+               for a, b in zip(ref, tree_leaves(params)))
+
+
+def _time_sharded_arch_step(ctx, point: ArchPoint, mode: str, n_iters: int,
+                            seed: int, eager_check: bool = False) -> Dict:
+    """Pool job: this rank's seconds of the warm-up (the compile) and of
+    ``n_iters`` compiled overlap steps of ``point``, each started at a
+    barrier of the mesh's ranks and ended by a synchronise of the device;
+    the losses, the kernel launches per timed step (``launches_per_step``)
+    and dynamo's graph breaks and graphs. With ``eager_check``, first as
+    many eager overlap steps from the same init ("eager_losses"), and the
+    parameter slices' ``param_gap`` after the last of each ("param_gap")."""
+    from torch._dynamo.utils import counters
+
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.dist.probes import launch_snapshot
+    from repro_torch.launch.specs import batch_shardings
+    from repro_torch.train.step import (init_sharded_train_state,
+                                        make_sharded_train_step)
+
+    mesh, dev = ctx.mesh, ctx.device
+    cfg, tcfg = point.model_config(), arch_train_config(point.compression)
+    batch = batch_shardings(make_batch_for(cfg, point.batch_size,
+                                           point.seq_len, seed=seed), mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+
+    def init():
+        return init_sharded_train_state(cfg, tcfg, mesh, point.strategy,
+                                        seed=seed, device=dev)
+
+    out = {}
+    if eager_check:
+        step = make_sharded_train_step(cfg, tcfg, mesh, point.strategy,
+                                       overlap=True)
+        out["eager_losses"], ref = _eager_steps(step, init(), batch, 1 + n_iters)
+    torch.compiler.reset()          # one compiled step alive (make_iteration)
+    counters.clear()
+    state = init()
+    step = make_sharded_train_step(cfg, tcfg, mesh, point.strategy,
+                                   overlap=True, mode=mode)
+    every = mesh.group(mesh.axis_names)
+    sync(dev)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                 # warm-up / compile
+    sync(dev)
+    warmup = time.perf_counter() - t0
+    losses, times = [float(m["loss"])], []
+    before = launch_snapshot()
+    for _ in range(n_iters):
+        if every is not None:
+            torch.distributed.barrier(group=every)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    out.update(times=times, warmup_s=warmup, losses=losses,
+               launches=launches_per_step(before, n_iters),
+               graph_breaks=sum(counters["graph_break"].values()),
+               graphs=counters["stats"]["unique_graphs"])
+    if eager_check:
+        out["param_gap"] = param_gap(ref, state.params)
+    return out
+
+
+def launches_per_step(before: Dict, steps: int) -> Dict:
+    """Each kernel's launches since ``before`` (``probes.launch_snapshot``)
+    per step of ``steps``, flash attention's and the SSD scan's by design
+    too."""
+    from repro_torch.dist.probes import launch_snapshot
+    now = launch_snapshot()
+    return {k: (now[k] - before[k]) / steps if isinstance(now[k], int) else
+            {d: (now[k][d] - before[k][d]) / steps for d in now[k]}
+            for k in now}
+
+
+def measure_sharded_arch_trial(point: ArchPoint, mode: str, *,
+                               n_iters: int = 2, seed: int = 0, pool=None,
+                               extra: Optional[Dict] = None,
+                               eager_check: bool = False
+                               ) -> Tuple[Optional[float], Optional[str]]:
+    """(median seconds of the compiled overlap step over
+    ``point.n_devices`` ranks of ``pool``, skip sentinel): each step's time
+    is its slowest rank's. ``(None, SKIP_POOL)`` without a pool or when
+    the point needs more ranks than it has. ``extra``, when given, gets
+    each rank's job result under "sharded". A rank that raises raises here
+    (``RankError``)."""
+    if pool is None or point.n_devices > pool.world:
+        return None, SKIP_POOL
+    per_rank = pool.run(_time_sharded_arch_step, point, mode, n_iters, seed,
+                        eager_check,
+                        mesh=arch_mesh_axes(point.strategy, point.n_devices))
+    if extra is not None:
+        extra["sharded"] = per_rank
+    slowest = [max(r["times"][i] for r in per_rank) for i in range(n_iters)]
+    return float(statistics.median(slowest)), None
+
+
+def measure_arch_trial(point: ArchPoint, mode: str = "jit", *,
+                       n_iters: int = 2, seed: int = 0, sharded: bool = True,
+                       calibration: Optional[Calibration] = None,
+                       device="cuda", pool=None,
+                       extra: Optional[Dict] = None,
+                       eager_check: bool = False) -> SweepRow:
+    """The cross-architecture counterpart of ``measure_trial``: the same
+    row schema, the token norm unit, the LM train step as the subject.
+    ``mode`` is "jit" or "jit_donate" (the compiled steps,
+    ``train.step.compile_fullgraph``) or "eager".
+    ``extra``, when given, gets the compute probe's warm-up seconds
+    ("compile_s"), its losses, launches per timed step and graph breaks
+    and graphs, and the sharded job's results ("sharded"); with
+    ``eager_check`` also the losses of as many eager steps from the same
+    init ("eager_losses") and the two parameter trees' ``param_gap`` after
+    the last ("param_gap"), on one device and on the ranks."""
+    from torch._dynamo.utils import counters
+
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.dist.probes import launch_snapshot
+    from repro_torch.perf.planner.space import model_comm_sizes
+    from repro_torch.perf.predict import estimate_comm
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    dev = resolve_device(device)
+    cal = calibration if calibration is not None else load_calibration()
+    cfg = point.model_config()
+    # Single-device compute on the compute-equivalent sub-batch: the
+    # overlap step partitions tensor-parallel compute over "model", so a
+    # device performs ~batch/n of the math for every strategy.
+    tc_comp = arch_train_config()
+    per_dev = max(point.batch_size // max(point.n_devices, 1), 1)
+    batch = {k: v.to(dev) for k, v in
+             make_batch_for(cfg, per_dev, point.seq_len, seed=seed).items()}
+    eager_check = eager_check and extra is not None
+    if eager_check:
+        extra["eager_losses"], ref = _eager_steps(
+            make_train_step(cfg, tc_comp),
+            init_train_state(cfg, tc_comp, seed=seed, device=dev), batch,
+            1 + n_iters)
+    torch.compiler.reset()
+    counters.clear()
+    state = init_train_state(cfg, tc_comp, seed=seed, device=dev)
+    step = make_train_step(cfg, tc_comp, mode=mode)
+    rec = current_recorder()
+    with rec.span("compute_probe", category="sweep", mode=mode):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)             # warm-up / compile
+        sync(dev)
+        warmup = time.perf_counter() - t0
+        losses, times = [float(m["loss"])], []
+        before = launch_snapshot()
+        for _ in range(n_iters):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        measured = float(statistics.median(times))
+    if extra is not None:
+        extra.update(compile_s=warmup, losses=losses,
+                     launches=launches_per_step(before, n_iters),
+                     graph_breaks=sum(counters["graph_break"].values()),
+                     graphs=counters["stats"]["unique_graphs"])
+    if eager_check:
+        extra["param_gap"] = param_gap(ref, state.params)
+
+    pb, ab = model_comm_sizes(cfg, point.batch_size, point.seq_len)
+    comm = estimate_comm(point.strategy, point.n_devices, pb,
+                         wire_bits=point.wire_bits, act_bytes=ab,
+                         calibration=cal).seconds
+    t_sim = measured * 1e3 + comm * 1e3
+    t_meas, skip = None, SKIP_NOT_REQUESTED
+    if sharded:
+        if mode == "eager":
+            skip = SKIP_EAGER
+        else:
+            with rec.span("sharded_probe", category="sweep", mode=mode):
+                t_meas, skip = measure_sharded_arch_trial(
+                    point, mode, n_iters=n_iters, seed=seed, pool=pool,
+                    extra=extra, eager_check=eager_check)
+            if t_meas is not None:
+                t_meas *= 1e3
+    return SweepRow(features=point.features(), mode=mode,
+                    measured_ms=measured * 1e3, comm_ms=comm * 1e3,
+                    time_ms=t_sim, param_bytes=pb, t_simulated=t_sim,
+                    t_measured_sharded=t_meas, sharded_skip=skip,
+                    calibration=cal.label, act_bytes=ab, family=point.family,
+                    norm_unit=get_spec(point.family).norm_unit)
+
+
+def run_arch_sweep(family: str, n_trials: int = 48, mode: str = "jit",
+                   seed: int = 0, out_path: Optional[str] = None,
+                   verbose_every: int = 5, sharded: bool = True,
+                   calibration: Optional[Calibration] = None,
+                   n_iters: int = 2, device="cuda", pool=None) -> List[Dict]:
+    """Random sweep of one architecture family (``run_sweep``'s
+    counterpart; one mode, "jit" by default). A point that raises, on any
+    rank too, or that does not compile in one graph, is recorded as
+    ``{"error", "mode", "family", "features"}`` and the sweep goes on."""
+    dev = resolve_device(device)
+    cal = calibration if calibration is not None else load_calibration()
+    rng = np.random.default_rng(seed)
+    rows: List[Dict] = []
+    t0 = time.time()
+    rec = current_recorder()        # disabled default: spans are no-ops
+    for i in range(n_trials):
+        point = sample_arch_point(family, rng)
+        try:
+            with rec.span("trial", category="sweep", index=i,
+                          family=family, mode=mode,
+                          n_devices=point.n_devices,
+                          strategy=str(point.strategy),
+                          batch=point.batch_size):
+                row = measure_arch_trial(point, mode, n_iters=n_iters,
+                                         seed=seed + i, sharded=sharded,
+                                         calibration=cal, device=dev,
+                                         pool=pool)
+        except Exception as e:      # a pathological point; record & go on
+            rows.append({"error": f"{type(e).__name__}: {e}", "mode": mode,
+                         "family": family, "features": point.features()})
+            continue
+        rows.append(asdict(row))
+        if verbose_every and (i + 1) % verbose_every == 0:
+            print(f"  [{family}] sweep {i+1}/{n_trials} "
+                  f"({time.time()-t0:.0f}s)", flush=True)
+            if out_path:                       # incremental checkpoint
+                _dump(rows, out_path)
+    if out_path:
+        _dump(rows, out_path)
+    return rows

@@ -19,12 +19,30 @@ Two paths share the same TrainState and numerics:
   ``LocalDim``) and gathers every other sharded dim of a segment's layer
   inside that layer (``StreamDim``, ``dist.sharding.stream_gather``).
 
-Each function of (state, batch) runs eagerly. Gradients come from
-``torch.autograd.grad`` with respect to the parameter tensors (zeros for a parameter the loss does not reach);
-the codec, clipping and the optimizer run without autograd. The step
-updates the state it is given in place (parameters, optimizer moments,
-error-feedback residuals), as the reference's jitted step donates its state
-(``donate_argnums=(0,)``), so a full-width model's state is not held twice.
+Gradients come from ``torch.autograd.grad`` with respect to the parameter
+tensors (zeros for a parameter the loss does not reach); the codec, clipping
+and the optimizer run without autograd. The eager step (``mode="eager"``,
+the default) updates the state it is given in place (parameters, optimizer
+moments, error-feedback residuals), as the reference's jitted step donates
+its state (``donate_argnums=(0,)``), so a full-width model's state is not
+held twice.
+
+The compiled steps (``mode="jit"`` or ``"jit_donate"``, the reference's
+``jax.jit`` of the step without and with ``donate_argnums=(0,)``) are the
+eager step's functions in ``torch.compile(fullgraph=True, dynamic=False)``
+regions, each one graph or an error: the forward (the loss, with the
+overlap body's per-layer gathers and Megatron collectives), whose backward
+AOT autograd compiles with it and ``torch.autograd.grad`` runs, and the
+update (the gradients' reduction and codec, the clip, the optimizer); the
+overlap body's eager gathers are a third. (One graph for the whole step,
+with ``torch.func.grad_and_value`` as the LeNet iteration takes its grads,
+cannot hold the kernels: ``torch.func`` does not differentiate
+``torch.library`` custom ops.) The learning rate and AdamW's bias
+corrections enter as 0-d tensors and the step count stays on the host, so
+one compile serves every step. ``jit_donate`` writes the new state into
+the tensors it is given, as the eager step does; ``jit`` leaves them as
+they are and returns new tensors (the update clones the state inside its
+graph first), as ``jax.jit`` without donation returns new buffers.
 """
 from __future__ import annotations
 
@@ -47,7 +65,7 @@ from repro_torch.dist.sharding import (BATCH_AXES, Mesh, all_reduce, axis_sizes,
 from repro_torch.models import model as MD
 from repro_torch.models.layers import LocalDim, StreamDim
 from repro_torch.optim import clip_by_global_norm, make_optimizer, warmup_cosine
-from repro_torch.optim.optimizers import OptState
+from repro_torch.optim.optimizers import OptState, adamw_corrections
 from repro_torch.tree import (reference_leaves, tree_leaves, tree_map,
                               tree_unflatten)
 
@@ -79,16 +97,25 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     return [{k: cols[k][i] for k in batch} for i in range(n)]
 
 
-def _grad_fn(cfg: ModelConfig, tcfg: TrainConfig):
+def _forward(cfg: ModelConfig, tcfg: TrainConfig):
+    """(params, batch, axes=None) -> (loss, metrics): the step's forward."""
+    def forward(params, batch, axes=None):
+        return MD.loss_fn(params, cfg, batch, remat=tcfg.remat_policy,
+                          ce_impl=tcfg.ce_impl, axes=axes)
+    return forward
+
+
+def _grad_fn(cfg: ModelConfig, tcfg: TrainConfig, forward=None):
+    """(params, batch, axes=None) -> (loss, metrics, grads) of ``forward``
+    (a compiled one; by default ``_forward``'s), all detached."""
+    forward = forward or _forward(cfg, tcfg)
+
     def loss_and_grads(params, batch, axes=None):
-        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-        loss, metrics = MD.loss_fn(tree_unflatten(params, leaves), cfg, batch,
-                                   remat=tcfg.remat_policy,
-                                   ce_impl=tcfg.ce_impl, axes=axes)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        leaves, tracked = _leaves_needing_grad(params)
+        loss, metrics = forward(tracked, batch, axes)
+        grads = _grads(loss, leaves, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_unflatten(params, grads)
+        return loss.detach(), metrics, grads
     return loss_and_grads
 
 
@@ -113,35 +140,114 @@ def _loss_and_grads(grad_fn, params, batch, microbatches: int, axes=None):
     return torch.stack(losses).mean(), metrics, acc
 
 
+MODES = ("eager", "jit", "jit_donate")
+
+
+def _backend(gm, example_inputs):
+    """Inductor's code generation for a graph of CUDA tensors; on the CPU
+    the same graphs and AOT autograd run op by op (``aot_eager``): nothing
+    is timed there, and inductor's C++ compiles cost tens of seconds a
+    step."""
+    if any(isinstance(x, torch.Tensor) and x.device.type == "cuda"
+           for x in example_inputs):
+        from torch._inductor.compile_fx import compile_fx
+        return compile_fx(gm, example_inputs)
+    from torch._dynamo.backends.debugging import aot_eager
+    return aot_eager(gm, example_inputs)
+
+
+def compile_fullgraph(fn):
+    """``torch.compile(fn, fullgraph=True, dynamic=False)``: one graph per
+    shape, or an error (never a graph break), by ``_backend``."""
+    return torch.compile(fn, fullgraph=True, dynamic=False, backend=_backend)
+
+
+def _check_mode(mode: str, tcfg: TrainConfig, microbatches: int) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {MODES}")
+    if mode != "eager" and (tcfg.optimizer == "adafactor" or microbatches > 1):
+        raise NotImplementedError(
+            "a compiled step takes an elementwise optimizer (adamw, sgd) "
+            "and one microbatch")
+
+
+def _hyper(state: TrainState, tcfg: TrainConfig, device):
+    """(lr, AdamW's corrections or None) of the update ``state`` is at, as
+    0-d fp32 tensors on ``device``: a compiled update's inputs."""
+    lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
+                       warmup_steps=tcfg.warmup_steps,
+                       total_steps=tcfg.total_steps)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    corr = (tuple(map(t, adamw_corrections(tcfg, state.opt.step + 1)))
+            if tcfg.optimizer == "adamw" else None)
+    return lr, t(lr), corr
+
+
+def _clone_state(mode: str, *trees):
+    """``jit``: copies of the trees, which the update then writes into;
+    ``eager`` and ``jit_donate``: the trees themselves."""
+    if mode != "jit":
+        return trees
+    return tuple(None if t is None else tree_map(torch.clone, t) for t in trees)
+
+
+def _leaves_needing_grad(tree):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(tree)]
+    return leaves, tree_unflatten(tree, leaves)
+
+
+def _grads(loss, leaves, like):
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return tree_unflatten(like, grads)
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                    microbatches: int = 1):
+                    microbatches: int = 1, mode: str = "eager"):
     """Returns train_step(state, batch) -> (state, metrics); the state that
-    comes back holds the tensors of the one passed in, updated."""
+    comes back holds the tensors of the one passed in, updated (``jit``: new
+    tensors). The forward and the update are the same functions in every
+    mode; ``jit`` and ``jit_donate`` compile each (the module docstring)."""
+    _check_mode(mode, tcfg, microbatches)
     _, opt_update = make_optimizer(tcfg.optimizer)
-    grad_fn = _grad_fn(cfg, tcfg)
+
+    def update(params, grads, opt, ef, lr, corr):
+        """Wire-format compression (numerics-exact w.r.t. a shared-scale
+        compressed all-reduce; see dist/compression.py), the clip and the
+        optimizer: (params, opt, ef, global norm)."""
+        params, mu, nu, ef = _clone_state(mode, params, opt.mu, opt.nu, ef)
+        opt = opt._replace(mu=mu, nu=nu)
+        if tcfg.grad_compression != "none":
+            grads, ef = compress_tree(grads, tcfg.grad_compression, ef)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        kw = {} if corr is None else {"corrections": corr}
+        params, opt = opt_update(params, grads, opt, tcfg, lr, **kw)
+        return params, opt, ef, gnorm
+
+    forward = _forward(cfg, tcfg)
+    if mode != "eager":
+        forward, update = compile_fullgraph(forward), compile_fullgraph(update)
+    grad_fn = _grad_fn(cfg, tcfg, forward)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        params = state.params
-        loss, metrics, grads = _loss_and_grads(grad_fn, params, batch,
+        loss, metrics, grads = _loss_and_grads(grad_fn, state.params, batch,
                                                microbatches)
-
-        # wire-format compression (numerics-exact w.r.t. a shared-scale
-        # compressed all-reduce; see dist/compression.py)
-        new_ef = state.ef
-        if tcfg.grad_compression != "none":
-            grads, new_ef = compress_tree(grads, tcfg.grad_compression,
-                                          state.ef)
-
-        with torch.no_grad():
-            grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
-                           warmup_steps=tcfg.warmup_steps,
-                           total_steps=tcfg.total_steps)
-        new_params, new_opt = opt_update(params, grads, state.opt, tcfg, lr)
+        if mode == "eager":
+            lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
+                               warmup_steps=tcfg.warmup_steps,
+                               total_steps=tcfg.total_steps)
+            lr_in, corr, opt = lr, None, state.opt
+        else:   # the graph holds no step count
+            lr, lr_in, corr = _hyper(state, tcfg, loss.device)
+            opt = state.opt._replace(step=0)
+        params, opt, ef, gnorm = update(state.params, grads, opt, state.ef,
+                                        lr_in, corr)
         metrics = dict(metrics)
         metrics.update(grad_norm=gnorm, lr=lr, loss=loss)
-        return TrainState(new_params, new_opt, new_ef), metrics
+        return (TrainState(params, opt._replace(step=state.opt.step + 1), ef),
+                metrics)
 
     return train_step
 
@@ -340,7 +446,8 @@ class RegionTimer:
 
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
                             strategy="dp", microbatches: int = 1,
-                            overlap: bool = False, timer=None):
+                            overlap: bool = False, timer=None,
+                            mode: str = "eager"):
     """The measured multi-rank step: ``step(state, batch)`` on each rank of
     ``mesh``, with this rank's state (``init_sharded_train_state``) and its
     rows of the global batch (``launch.specs.batch_shardings``); returns
@@ -367,6 +474,11 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
     backward, identical on a fresh residual), the rest is gathered eagerly;
     the clip sums every rank's squares weighted by 1/replication over the
     whole mesh. ``timer`` (a ``RegionTimer``) times the four regions.
+    ``mode`` "jit" or "jit_donate" compiles the overlap body (the module
+    docstring; ``compile_fullgraph``): its eager gathers,
+    its forward (the streamed gathers' reductions in the backward AOT
+    autograd compiles with it) and its reduce-clip-update, each one graph;
+    it takes no ``timer``.
 
     Restrictions, as the reference's: an elementwise optimizer (adamw or
     sgd: adafactor's factored moments take means over dims this path
@@ -376,6 +488,10 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
         raise NotImplementedError(
             "sharded path supports elementwise optimizers (adamw/sgd); "
             "adafactor's factored moments need full-dim means")
+    _check_mode(mode, tcfg, microbatches)
+    if mode != "eager" and (not overlap or timer is not None):
+        raise NotImplementedError("a compiled sharded step is the overlap "
+                                  "body, untimed by regions")
     batch_axes = _mesh_batch_axes(mesh)
     if not batch_axes:
         raise ValueError(f"mesh {dict(mesh.shape)} has no batch axis "
@@ -383,20 +499,24 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
     _, opt_update = make_optimizer(tcfg.optimizer)
     grad_fn = _grad_fn(cfg, tcfg)
     strat = resolve_strategy(strategy)
-    mode = tcfg.grad_compression
+    wire = tcfg.grad_compression
     shapes = MD.param_shapes(cfg)
     p_specs = sharded_state_specs(cfg, tcfg, mesh, strat, shapes).params
     batch_group = mesh.group(batch_axes)
     n_batch = n_batch_shards(mesh)
     region = timer if timer is not None else (lambda name: nullcontext())
 
-    def update(state, shards, gnorm, loss, metrics):
-        """The optimizer on this rank's slices; the metrics meaned over the
-        batch axes."""
-        lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
-                           warmup_steps=tcfg.warmup_steps,
-                           total_steps=tcfg.total_steps)
-        new_params, new_opt = opt_update(state.params, shards, state.opt, tcfg, lr)
+    def update(state, shards, gnorm, loss, metrics, lr=None, corr=None):
+        """The optimizer on this rank's slices (of ``state``'s tensors);
+        the metrics meaned over the batch axes. ``lr`` and ``corr``: a
+        compiled update's tensors (else from ``state``'s step count)."""
+        if lr is None:
+            lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
+                               warmup_steps=tcfg.warmup_steps,
+                               total_steps=tcfg.total_steps)
+        kw = {} if corr is None else {"corrections": corr}
+        new_params, new_opt = opt_update(state.params, shards, state.opt, tcfg,
+                                         lr, **kw)
         metrics = {k: _pmean(v, batch_group, n_batch) for k, v in metrics.items()}
         metrics.update(grad_norm=gnorm, lr=lr, loss=loss)
         return TrainState(new_params, new_opt, state.ef), metrics
@@ -412,7 +532,7 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
                                                        microbatches)
             del full
             with region("grad_reduce"), torch.no_grad():
-                reduced = _reduce_grads(grads, batch_group, mode, state.ef)
+                reduced = _reduce_grads(grads, batch_group, wire, state.ef)
                 del grads
                 loss = _pmean(loss, batch_group, n_batch)
             with region("update"), torch.no_grad():
@@ -428,7 +548,32 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
     plan_axes = tree_map(lambda p, pl: pl.axes, shapes, plans)
     streamed = tree_map(lambda p, pl: pl.streamed, shapes, plans)
     whole = mesh.group(mesh.axis_names)
-    stream_mode = "int8" if mode == "int8_ef" else mode
+    stream_mode = "int8" if wire == "int8_ef" else wire
+
+    def reduce(grads, ef, loss):
+        """The grads' mean over the batch axes (but the streamed ones',
+        reduced in their backward) and the loss's."""
+        return (_reduce_grads(grads, batch_group, wire, ef, done=streamed),
+                _pmean(loss, batch_group, n_batch))
+
+    def clip_shards(reduced):
+        """Partition-aware clip: each rank's squares weighted by
+        1/replication, one SUM over the whole mesh; then this rank's
+        slices. Returns (slices, global norm)."""
+        contribs = tree_map(lambda g, pl: g.square().sum() / pl.repl,
+                            reduced, plans)
+        local = torch.stack(tree_leaves(contribs)).sum()
+        gnorm = torch.sqrt(all_reduce(local, "sum", whole))
+        scale = torch.clamp(torch.full_like(gnorm, tcfg.grad_clip)
+                            / torch.clamp(gnorm, min=1e-9), max=1.0)
+        clipped = tree_map(lambda g: g * scale, reduced)
+        return tree_map(lambda g, pl: shard_of_full(g, pl.gather, mesh),
+                        clipped, plans), gnorm
+
+    if mode != "eager":
+        return _compiled_overlap_body(cfg, tcfg, mesh, mode, plans,
+                                      plan_axes, batch_group, stream_mode,
+                                      reduce, clip_shards, update)
 
     def overlap_body(state: TrainState, batch):
         with manual_mode(mesh, batch_group, stream_mode):
@@ -442,22 +587,57 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
                     grad_fn, compute, batch, microbatches, axes=plan_axes)
             del compute
             with region("grad_reduce"), torch.no_grad():
-                reduced = _reduce_grads(grads, batch_group, mode, state.ef,
-                                        done=streamed)
+                reduced, loss = reduce(grads, state.ef, loss)
                 del grads
-                loss = _pmean(loss, batch_group, n_batch)
             with region("update"), torch.no_grad():
-                # partition-aware clip: each rank's squares weighted by
-                # 1/replication, one SUM over the whole mesh
-                contribs = tree_map(lambda g, pl: g.square().sum() / pl.repl,
-                                    reduced, plans)
-                local = torch.stack(tree_leaves(contribs)).sum()
-                gnorm = torch.sqrt(all_reduce(local, "sum", whole))
-                scale = torch.clamp(torch.full_like(gnorm, tcfg.grad_clip)
-                                    / torch.clamp(gnorm, min=1e-9), max=1.0)
-                clipped = tree_map(lambda g: g * scale, reduced)
-                shards = tree_map(lambda g, pl: shard_of_full(g, pl.gather, mesh),
-                                  clipped, plans)
+                shards, gnorm = clip_shards(reduced)
                 return update(state, shards, gnorm, loss, metrics)
 
     return overlap_body
+
+
+def _compiled_overlap_body(cfg, tcfg, mesh, mode, plans, plan_axes,
+                           batch_group, stream_mode, reduce, clip_shards,
+                           update):
+    """The overlap body as three compiled regions: the eager gathers, the
+    forward under the step's ``manual_mode`` (entered outside the graphs: a
+    module global, constant for a trace), and reduce-clip-update on the
+    state (cloned first under ``jit``) with its step count held at 0 in the
+    graph, the lr and AdamW's corrections as tensors."""
+
+    def gather(params):
+        return tree_map(lambda p, pl: gather_to_full(p, pl.gather, mesh),
+                        params, plans)
+
+    def forward(compute, batch):
+        return MD.loss_fn(compute, cfg, batch, remat=tcfg.remat_policy,
+                          ce_impl=tcfg.ce_impl, axes=plan_axes)
+
+    def update_step(state, grads, loss, metrics, lr, corr):
+        params, mu, nu, ef = _clone_state(mode, state.params, state.opt.mu,
+                                          state.opt.nu, state.ef)
+        state = TrainState(params, OptState(0, mu, nu), ef)
+        with torch.no_grad():
+            reduced, loss = reduce(grads, ef, loss)
+            shards, gnorm = clip_shards(reduced)
+            return update(state, shards, gnorm, loss, metrics, lr, corr)
+
+    gather_c, forward_c, update_c = map(compile_fullgraph,
+                                        (gather, forward, update_step))
+
+    def body(state: TrainState, batch):
+        with manual_mode(mesh, batch_group, stream_mode):
+            compute = gather_c(state.params)
+            leaves, compute_g = _leaves_needing_grad(compute)
+            loss, metrics = forward_c(compute_g, batch)
+            grads = _grads(loss, leaves, compute)
+            lr, lr_t, corr = _hyper(state, tcfg, loss.device)
+            new, metrics = update_c(
+                state._replace(opt=state.opt._replace(step=0)), grads,
+                loss.detach(),
+                {k: v.detach() for k, v in metrics.items()}, lr_t, corr)
+        metrics["lr"] = lr
+        return (new._replace(opt=new.opt._replace(step=state.opt.step + 1)),
+                metrics)
+
+    return body

@@ -82,3 +82,20 @@ def sharded_step(ctx, cfg, tcfg, strategy, overlaps, tree, batch):
                    [x.cpu().numpy() for x in tree_leaves(state.ef)]),
             "lr": float(metrics["lr"]), "loss": float(metrics["loss"])}
     return out
+
+
+def raise_in_collective(ctx, rank):
+    """Raise on ``rank`` while every other rank of the mesh waits for it in
+    an all-reduce; return this rank's process id elsewhere."""
+    import os
+    import torch.distributed as dist
+    if ctx.rank == rank:
+        raise ValueError(f"rank {rank} left its peers in a collective")
+    dist.all_reduce(torch.ones(1), group=ctx.mesh.group(ctx.mesh.axis_names))
+    return os.getpid()
+
+
+def pid(ctx):
+    """This rank's process id."""
+    import os
+    return os.getpid()

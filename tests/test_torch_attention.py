@@ -175,7 +175,7 @@ def test_gqa_forward_ring_cache_matches_reference(n_heads, n_kv):
 @pytest.mark.parametrize("case", [(2, 48, 48, 4, 2, 16, True, 0, 0.0),
                                   (1, 40, 72, 6, 3, 8, True, 24, 30.0)])
 def test_plain_attention_grads_match_blockwise_reference(case):
-    """The backward that ``FA.FlashAttention`` recomputes is autograd through
+    """The backward that the flash attention op recomputes is autograd through
     ``attention_plain``: held against ``jax.grad`` of the reference's
     ``attend_blockwise`` (block 16, so its checkpointed blocks run), fp32."""
     B, Sq, Skv, Hq, Hkv, hd, causal, window, cap = case
@@ -202,11 +202,11 @@ def test_plain_attention_grads_match_blockwise_reference(case):
 
 @pytest.mark.parametrize("need", [(True, True, True), (True, False, False),
                                   (False, True, True)])
-def test_flash_function_backward_recomputes_plain(monkeypatch, need):
-    """``FA.FlashAttention``'s backward on the CPU, with the plain version
-    standing in for the kernel's forward: its grads are autograd's through
+def test_flash_function_backward_recomputes_plain(need):
+    """The ``repro_torch::flash_attention`` op (``FA.attention``) on the CPU,
+    where its implementation is the plain version: its forward is
+    ``attention_plain``'s, its grads are autograd's through
     ``attention_plain``, and None for inputs that need none."""
-    monkeypatch.setattr(FA, "flash_attention", FA.attention_plain)
     arrays = _qkv(2, 12, 12, 6, 2, 8, seed=6)
     go = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (2, 12, 6, 8)).astype(np.float32))
@@ -214,7 +214,8 @@ def test_flash_function_backward_recomputes_plain(monkeypatch, need):
     spec = A.AttnSpec(causal=True)
     a = [torch.from_numpy(x).requires_grad_(n) for x, n in zip(arrays, need)]
     b = [torch.from_numpy(x).requires_grad_(n) for x, n in zip(arrays, need)]
-    out = FA.FlashAttention.apply(*a, pos, pos, spec)
+    before = FA.LAUNCHES
+    out = FA.attention(*a, pos, pos, spec)
     ref = FA.attention_plain(*b, pos, pos, spec)
     torch.testing.assert_close(out, ref, atol=0, rtol=0)
     (out * go).sum().backward()
@@ -224,3 +225,4 @@ def test_flash_function_backward_recomputes_plain(monkeypatch, need):
             torch.testing.assert_close(x.grad, y.grad, atol=0, rtol=0)
         else:
             assert x.grad is None
+    assert FA.LAUNCHES == before

@@ -1,8 +1,11 @@
 """Rules of the port: what it imports, where it runs, and the serve and train
 entry points' reports."""
 import ast
+import functools
 import json
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -14,7 +17,8 @@ from repro_torch.kernels import ssd_scan as SSD
 from repro_torch.models.attention import AttnSpec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT = os.path.join(REPO, "src", "repro_torch")
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
 REFERENCE_REPORT_KEYS = {  # repro/launch/serve.py's report
     "arch", "batch", "prompt_len", "generated", "strategy", "devices", "mesh",
     "prefill_s", "decode_s", "decode_tok_per_s", "sample_tokens"}
@@ -46,6 +50,35 @@ def test_port_imports_neither_jax_nor_repro():
     bad = [(os.path.relpath(f, REPO), root) for f in files
            for root in _imported_roots(f) if root in ("jax", "jaxlib", "repro")]
     assert not bad, bad
+
+
+ARCH_SWEEP_MODULES = ("repro_torch.obs.trace", "repro_torch.perf.planner.space",
+                      "repro_torch.launch.arch_sweep", "repro_torch.perf.sweep")
+
+
+@functools.lru_cache(maxsize=None)
+def _roots_after_importing_arch_sweep():
+    """The roots among jax, jaxlib and repro that a fresh interpreter holds
+    after importing the arch sweep's modules and what they import at call
+    time (the step, the fits, the calibration)."""
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in ARCH_SWEEP_MODULES)
+            + "import repro_torch.train.step, repro_torch.core.fit\n"
+              "import repro_torch.perf.costmodel.calibrate\n"
+              "print(sorted({m.split('.')[0] for m in sys.modules}"
+              " & {'jax', 'jaxlib', 'repro'}))")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env={**os.environ, "PYTHONPATH": SRC},
+                          check=True).stdout.strip()
+
+
+@pytest.mark.parametrize("module", ARCH_SWEEP_MODULES)
+def test_arch_sweep_modules_import_neither_jax_nor_repro(module):
+    """The arch sweep's modules are among the scanned files, and importing
+    them in a fresh interpreter loads no module of jax, jaxlib or repro."""
+    path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
+    assert path in _port_files()
+    assert _roots_after_importing_arch_sweep() == "[]"
 
 
 def test_port_has_no_jax_in_sources():
@@ -246,16 +279,20 @@ def _ssd_cpu_inputs():
 
 @pytest.mark.parametrize("call", ["wrapper", "autograd"])
 def test_ssd_kernel_refuses_cpu_tensors(call):
-    """Only ops.ssd_chunked sends CPU tensors to the plain version; the
-    kernel's wrapper and its autograd Function raise before building or
-    launching anything."""
+    """Only the plain version takes CPU tensors: the kernel's wrapper raises
+    before building or launching anything, and the custom op that autograd
+    goes through (``ssd_scan_op``) sends them to its CPU implementation,
+    ``ssd_plain``, launching nothing."""
     ins = _ssd_cpu_inputs()
     before = SSD.LAUNCHES
-    with pytest.raises(ValueError, match="CUDA"):
-        if call == "wrapper":
+    if call == "wrapper":
+        with pytest.raises(ValueError, match="CUDA"):
             SSD.ssd_scan(*ins, 32)
-        else:
-            SSD.SSDScan.apply(*ins, 32)
+    else:
+        got = SSD.ssd_scan_op(*ins, 32)
+        want = SSD.ssd_plain(*ins, chunk=32, return_state=True)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert SSD.LAUNCHES == before
 
 
@@ -479,6 +516,27 @@ def test_pool_ranks_import_neither_jax_nor_repro():
             pool.run(jobs.raise_on, 1, mesh={"data": 2})
         assert pool.run(jobs.raise_on, 5, mesh={"data": 2}) == [0, 1]
     assert "jax" in roots[0] and roots[1] == []
+
+
+def test_pool_isolates_a_rank_that_fails_in_a_collective():
+    """Rank 1 raises while rank 0 waits for it in an all-reduce: the job
+    fails with rank 1's traceback within seconds (not the collectives'
+    300 s timeout), and the next job runs on a fresh world (new processes)."""
+    import time
+
+    import _torch_pool_jobs as jobs
+    from repro_torch.dist.pool import Pool, RankError
+    with Pool(world=2, device="cpu") as pool:
+        before = pool.run(jobs.pid, mesh={"data": 2})
+        t0 = time.monotonic()
+        with pytest.raises(RankError) as err:
+            pool.run(jobs.raise_in_collective, 1, mesh={"data": 2})
+        assert time.monotonic() - t0 < 30
+        assert "rank 1: ValueError: rank 1 left its peers" in str(err.value)
+        assert "in raise_in_collective" in str(err.value)     # the traceback
+        after = pool.run(jobs.pid, mesh={"data": 2})
+        assert pool.starts == 2
+        assert after[0] == before[0] and not set(after[1:]) & set(before[1:])
 
 
 def test_fit_perfmodel_sharded_needs_a_compiled_mode(capsys):
