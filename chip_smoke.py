@@ -180,7 +180,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     flash attention op at the trials' shapes (compiled at the lm
     trial's), phase 5 the SSD op at the ssm trial's, eagerly and compiled
     (and the kernel at the sweep's d_state 16 and 32, which take the
-    tensor cores), and phase 13 times one of each.
+    tensor cores), and phase 13 times one of each;
+22. the planner: (a) before phase 15, ``python -m repro_torch.launch.plan
+    --dry-run --k 10`` (``launch.plan.main``) on the card with the checked-in
+    model and calibration, gated on the reference's plan (``PLAN_SPACE``,
+    ``PLAN_FEASIBLE``, ``PLAN_FRONTIER``, ``PLAN_TOP10``, pinned to the
+    reference's live output by ``tests/test_torch_plan_cli.py``) and on
+    ``tools/planner_smoke.py``'s contract, then its fail-soft plan (the
+    model's calibration stripped, ``$REPRO_CALIBRATION`` at a missing file)
+    marked uncalibrated; (b) on phase 15's pool of 8, two picks of that plan
+    (its int8 top pick and the best pick without a codec) through
+    ``launch.plan.measure_slate``, the ``--validate`` protocol (each program
+    compiled once, ``PLAN_ROUNDS`` interleaved rounds of ``PLAN_ITERS``
+    steps), every rank's codec launches exact by phase 15 (b)'s count per
+    int8 iteration, every fixed-work ms finite and positive; (c) after phase
+    21, ``launch.train.main(["--strategy", "auto", "--report-comm",
+    "--devices", "4", ...])``: full-width smollm-360m, adamw + int8_ef, batch
+    8 x 512, ``AUTO_STEPS`` steps over 4 ranks, the strategy run equal to
+    ``choose_strategy``'s on the same inputs (recomputed here) and the
+    report's ``planner`` its decision, ``comm`` present, losses finite and
+    falling, exact flash and codec launches per rank and step; the planner's
+    comm_ms printed beside the measured gather_params + grad_reduce a rank.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -619,14 +639,15 @@ def _plain_collective(torch, xs, mode):
             torch.stack(residuals).numpy() if residuals else None)
 
 
-def sharded_pipeline(torch, dev, card):
+def sharded_pipeline(torch, dev, card, then=None):
     """Phase 15: the sharded half of the paper's pipeline on the card, over
     one pool of 8 ranks sharing it (gloo). (a) the compressed collectives
     against rank 0's plain emulation; (b) the sharded LeNet iteration of
     every strategy against the single-process full-batch iteration, jit
     against eager, with exact codec launches; (c) a short measured sweep
     through ``fit_perfmodel.main(["--sharded", ...])``. Returns the kernel
-    launches of every rank summed over (c), the path's run."""
+    launches of every rank summed over (c), the path's run, and what
+    ``then(pool)`` returned: a later phase run on the same pool."""
     import numpy as np
 
     from repro_torch.configs.lenet5 import LeNet5Config
@@ -812,6 +833,7 @@ def sharded_pipeline(torch, dev, card):
             with open(path) as f:
                 rows = json.load(f)
         per_rank = pool.run(probes.read_launches, mesh={"data": pool.world})
+        later = then(pool) if then is not None else None
     launches = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
     ok = [r for r in rows if "error" not in r]
     errors = [r["error"] for r in rows if "error" in r]
@@ -846,7 +868,7 @@ def sharded_pipeline(torch, dev, card):
           + f"; sweep {report['sweep_s']:.1f} s; launches over every rank {launches}; "
           f"card {card}", flush=True)
     print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
-    return launches
+    return launches, later
 
 
 # Phases 16 and 17: the local/global pair and the encoder-decoder kinds at
@@ -1590,6 +1612,222 @@ def arch_sweep_phase(torch, dev, card, pool, env):
     print(f"  launches over the phase (this process and every rank) {counts}; phase "
           f"21 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
     return counts, out_rows
+
+
+# Phase 22: the planner. (a) ``launch.plan --dry-run --k 10`` with the
+# checked-in model and calibration gated on the reference's plan (its live
+# output is pinned to these constants by a CPU test): the space, feasible
+# and frontier counts and the top-10 keys in order; then the fail-soft plan
+# (the model's calibration stripped, ``$REPRO_CALIBRATION`` at a missing
+# file), marked uncalibrated. (b) two picks of that plan (its top pick,
+# int8, and the best pick without a codec) measured on phase 15's pool by
+# ``launch.plan.measure_slate``: a compile (one warm-up iteration) and
+# PLAN_ROUNDS x PLAN_ITERS timed iterations a pick, each with phase 15 (b)'s
+# codec launches per rank per int8 iteration. (c) ``launch.train --strategy
+# auto --report-comm`` of full-width smollm-360m over 4 ranks (adamw +
+# int8_ef, batch 8 x 512, AUTO_STEPS steps): the strategy it ran is
+# ``choose_strategy``'s on the same inputs, recomputed here; its ``planner``
+# and ``comm`` reports; losses finite and falling; exact launches for the
+# strategy chosen.
+PLAN_SPACE, PLAN_FEASIBLE, PLAN_FRONTIER = 240, 240, 16
+PLAN_TOP10 = (("dp", 2, 128, "int8"), ("dp", 4, 128, "int8"),
+              ("fsdp", 2, 128, "int8"), ("dp", 8, 128, "int8"),
+              ("fsdp", 4, 128, "int8"), ("fsdp", 8, 128, "int8"),
+              ("fsdp_tp", 4, 128, "int8"), ("fsdp_tp", 8, 128, "int8"),
+              ("fsdp_tp", 2, 128, "int8"), ("tp", 2, 128, "int8"))
+PLAN_ITERS, PLAN_ROUNDS = 2, 2
+AUTO_STEPS = 3
+
+
+def _check_plan(plan, calibrated, what):
+    """tools/planner_smoke.py's contract of a dry-run plan."""
+    problems = []
+    if not plan["feasible"] > 0 or not plan["frontier_size"] >= 1 or not plan["frontier"]:
+        problems.append("no feasible point or an empty frontier")
+    if len(plan["top"]) < 8:
+        problems.append(f"slate of {len(plan['top'])}")
+    for p in plan["top"]:
+        if not (p["time_ms"] > 0 and p["compute_ms"] > 0
+                and p["band_ms"][0] <= p["time_ms"] <= p["band_ms"][1]
+                and p["memory"]["total_per_device"] > 0):
+            problems.append(f"pick {p['strategy']} {p['n_devices']}: {p['time_ms']}")
+    if plan["calibrated"] != calibrated:
+        problems.append(f"calibrated {plan['calibrated']} ({plan['calibration']})")
+    if not plan["frontier"][0]["time_ms"] <= plan["top"][0]["time_ms"] + 1e-9:
+        problems.append("the frontier's fastest point does not lead the slate")
+    if problems:
+        fail(f"{what}: {problems}")
+
+
+def planner_plan_phase(dev, card):
+    """Phase 22 (a): the plan CLI's dry run on the card, then its fail-soft
+    plan. Returns the plan."""
+    import warnings
+
+    from repro_torch.launch import plan as PL
+    from repro_torch.perf.planner import default_model_path
+
+    phase("planner: launch.plan --dry-run --k 10 (checked-in model and calibration), "
+          "then the fail-soft plan")
+    t0 = time.perf_counter()
+    blob = PL.main(["--dry-run", "--k", "10", "--device", dev.type])
+    plan_s = time.perf_counter() - t0
+    _check_plan(blob, True, "plan")
+    top = tuple(tuple(p[k] for k in ("strategy", "n_devices", "batch_size",
+                                     "compression")) for p in blob["top"])
+    got = (blob["space"], blob["feasible"], blob["frontier_size"], top)
+    if got != (PLAN_SPACE, PLAN_FEASIBLE, PLAN_FRONTIER, PLAN_TOP10):
+        fail(f"plan {got[:3]} top {top}, expected the reference's "
+             f"{(PLAN_SPACE, PLAN_FEASIBLE, PLAN_FRONTIER)} top {PLAN_TOP10}")
+    with open(default_model_path()) as f:
+        stripped = json.load(f)
+    stripped["calibration"] = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "planner_model_nocal.json")
+        with open(path, "w") as f:
+            json.dump(stripped, f)
+        with unittest.mock.patch.dict(os.environ, {
+                "REPRO_CALIBRATION": os.path.join(tmp, "missing.json")}), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t1 = time.perf_counter()
+            blob2 = PL.main(["--dry-run", "--k", "10", "--device", dev.type,
+                             "--model", path])
+            soft_s = time.perf_counter() - t1
+    _check_plan(blob2, False, "fail-soft plan")
+    print(f"  plan: {blob['space']} points, {blob['feasible']} feasible, "
+          f"{blob['frontier_size']} on the frontier, top-10 the reference's; "
+          f"calibration {blob['calibration']}; top pick {top[0]} predicted "
+          f"{blob['top'][0]['time_ms']:.4f} ms (the reference's model of its host "
+          f"pool); plan {plan_s:.2f} s (planner_plan's plan_seconds "
+          f"{blob['plan_seconds']}); fail-soft plan calibration "
+          f"{blob2['calibration']} (calibrated {blob2['calibrated']}), "
+          f"{soft_s:.2f} s; card {card}", flush=True)
+    return blob
+
+
+def planner_measure_phase(torch, dev, card, pool):
+    """Phase 22 (b): two picks of the plan measured through
+    ``launch.plan.measure_slate`` on phase 15's pool, with exact codec
+    launches on every rank. Returns (launches over the ranks, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs.lenet5 import LeNet5Config
+    from repro_torch.dist import probes
+    from repro_torch.launch import plan as PL
+    from repro_torch.perf.planner import (Constraints, PlannerModel,
+                                          enumerate_lenet_space, predict_points,
+                                          top_k, validation_slate)
+
+    phase(f"planner: two picks measured by launch.plan.measure_slate on phase 15's "
+          f"pool of {pool.world} ({PLAN_ROUNDS} rounds x {PLAN_ITERS} iterations)")
+    t0 = time.perf_counter()
+    model = PlannerModel.load(device=dev)
+    feasible, _ = enumerate_lenet_space(LeNet5Config(), pool=pool.world)
+    preds = predict_points(model, feasible)
+    first = validation_slate(preds, 1)[0]
+    plain = top_k(preds, 1, constraints=Constraints(compressions=("none",)))[0]
+    picks = [first, plain]
+    if first.point.compression != "int8":
+        fail(f"the plan's top pick {first.point.key()} is not int8")
+    world = {"data": pool.world}
+    pool.run(probes.reset_launches, mesh=world)
+    measured = PL.measure_slate(picks, PLAN_ITERS, PLAN_ROUNDS, pool)
+    per_rank = pool.run(probes.read_launches, mesh=world)
+    iterations = 1 + PLAN_ROUNDS * PLAN_ITERS
+    for r, got in enumerate(per_rank):
+        calls = sum(iterations * _codec_calls(p.point.strategy, p.point.n_devices)
+                    for p in picks
+                    if p.point.compression == "int8" and r < p.point.n_devices)
+        if (got["quantize_absmax"], got["quantize_int8"], got["dequantize_int8"],
+                got["flash_attention"], got["ssd_scan"]) != (calls, calls, 0, 0, 0):
+            fail(f"measure_slate: rank {r} launched {got}, expected {calls} absmax + "
+                 f"{calls} quantize")
+    if not all(np.isfinite(m) and m > 0 for m in measured):
+        fail(f"measure_slate: fixed-work ms {measured}")
+    launches = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
+    numbers = {"picks": [p.point.key() for p in picks],
+               "predicted_ms": [p.time_ms for p in picks], "measured_ms": measured}
+    print(f"  picks {numbers['picks']}: fixed-work ms measured {measured} vs predicted "
+          f"{numbers['predicted_ms']} (the reference's model); launches over the "
+          f"ranks {launches} ({iterations} iterations a pick, {_codec_calls('dp', 2)} "
+          f"absmax + quantize a rank per int8 iteration); "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return launches, numbers
+
+
+def auto_train_phase(torch, dev, card):
+    """Phase 22 (c): ``launch.train --strategy auto --report-comm`` of
+    full-width smollm-360m over 4 ranks. Returns ({kernel: launches summed
+    over ranks and steps}, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import plan_remesh
+    from repro_torch.models import model as MD
+    from repro_torch.perf.planner import choose_strategy
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_LM_RANKS
+    mesh = plan_remesh(n).axes()
+    phase(f"planner: launch.train --strategy auto --report-comm --devices {n} "
+          f"(mesh {mesh}), {TRAIN_ARCH} at full width, adamw + int8_ef, batch {B} x "
+          f"seq {S}, {AUTO_STEPS} steps")
+    t0 = time.perf_counter()
+    decision = choose_strategy(full, batch=B, seq=S, n_devices=n, optimizer="adamw",
+                               compression="int8_ef", mesh_axes=mesh)
+    report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
+                         "auto", "--report-comm", "--compression", "int8_ef",
+                         "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
+                         "--steps", str(AUTO_STEPS), "--device", dev.type,
+                         "--log-every", "1"])
+    run_s = time.perf_counter() - t0
+    if report["strategy"] != decision.strategy or report["path"] != "sharded":
+        fail(f"--strategy auto ran {report['strategy']} on path {report['path']}, "
+             f"the planner chose {decision.strategy}")
+    if "planner" not in report or "comm" not in report:
+        fail(f"--strategy auto --report-comm report lacks planner/comm: {sorted(report)}")
+    if report["planner"] != decision.to_dict():
+        fail(f"the report's planner {report['planner']} is not choose_strategy's")
+    losses = report["losses"]
+    if (len(losses) != AUTO_STEPS or not all(np.isfinite(losses))
+            or not losses[-1] < losses[0]):
+        fail(f"--strategy auto losses not finite and falling: {losses}")
+    rows = B // mesh["data"]          # every strategy's batch splits over data
+    designs, n_flash, _ = _train_work(MD, FA, full, rows, S, "none", torch.bfloat16, 1)
+    n_tensors = len(tree_leaves(MD.param_shapes(full)))
+    want = {"flash_attention": n_flash, "quantize_absmax": n_tensors,
+            "quantize_int8": n_tensors, "dequantize_int8": 0, "ssd_scan": 0,
+            "flash_by_design": {v: designs.get(v, 0) for v in FA.VARIANTS}}
+    totals = collections.Counter()
+    for r in report["ranks"]:
+        for step, got in enumerate(r["launches_per_step"]):
+            if got != want:
+                fail(f"--strategy auto rank {r['rank']} step {step} launched {got}, "
+                     f"expected {want}")
+            totals.update({k: v for k, v in got.items() if k != "flash_by_design"})
+    regions = {k: [round(r["regions_ms"][k], 3) for r in report["ranks"]]
+               for k in report["ranks"][0]["regions_ms"]}
+    comm_meas = [round(r["regions_ms"]["gather_params"] + r["regions_ms"]["grad_reduce"],
+                       3) for r in report["ranks"]]
+    numbers = {"strategy": decision.strategy, "reason": decision.reason,
+               "planner_comm_ms": decision.comm_ms,
+               "comm_estimate_ms": report["comm"]["per_step_ms"],
+               "calibration": decision.calibration_label,
+               "measured_gather_plus_reduce_ms": comm_meas, "regions_ms": regions,
+               "step_ms": report["step_ms"], "losses": losses,
+               "launches_per_rank_step": want}
+    print(f"  planner: {decision.strategy} ({decision.reason}); calibration "
+          f"{decision.calibration_label}; predicted comm {decision.comm_ms:.3f} ms a "
+          f"step (--report-comm {report['comm']['per_step_ms']:.3f} over "
+          f"{report['comm']['mesh_axes']}) vs measured gather_params + grad_reduce "
+          f"{comm_meas} ms a rank (median of steps 1..); regions {regions}; step_ms "
+          f"{report['step_ms']}; losses {[round(x, 4) for x in losses]}; launches per "
+          f"rank per step {want}; run {run_s:.1f} s; card {card}", flush=True)
+    return dict(totals), numbers
 
 
 def main() -> None:
@@ -2754,10 +2992,15 @@ def main() -> None:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
 
-    # ---- 15. sharded pipeline -----------------------------------------------
+    # ---- 22 (a). the plan CLI's dry run ------------------------------------------
+    plan_blob = planner_plan_phase(dev, card)
+
+    # ---- 15. sharded pipeline; 22 (b). two picks measured on its pool -------------
     phase("sharded pipeline on the card: a world of 8 ranks over gloo")
     try:
-        sharded_counts = sharded_pipeline(torch, dev, card)
+        sharded_counts, (plan_counts, plan_numbers) = sharded_pipeline(
+            torch, dev, card,
+            then=lambda pool: planner_measure_phase(torch, dev, card, pool))
     finally:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
@@ -2828,12 +3071,20 @@ def main() -> None:
     print(f"  sharded step numbers: {json.dumps(sharded_lm_numbers)}", flush=True)
     del q, k, v, got, ref, mask, qt, kt, vt
 
+    # ---- 22 (c). launch.train --strategy auto --report-comm ---------------------
+    auto_counts, auto_numbers = auto_train_phase(torch, dev, card)
+    planner_numbers = {"plan_top": plan_blob["top"][0], "measure": plan_numbers,
+                       "auto_train": auto_numbers}
+    print(f"  planner numbers: {json.dumps(planner_numbers)}", flush=True)
+
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
              "mamba2_prefill_check": prefill_counts,
              "sharded_pipeline": sharded_counts, **lm_counts,
              "sharded_lm_train": {k: sharded_lm_counts.get(k, 0) for k in counters},
-             "arch_sweep": arch_counts}
+             "arch_sweep": arch_counts,
+             "planner_measure": {k: plan_counts.get(k, 0) for k in counters},
+             "auto_train": {k: auto_counts.get(k, 0) for k in counters}}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}

@@ -4,6 +4,8 @@
       --batch 8 --seq 512 --steps 8 --compression int8_ef
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --devices 4 --strategy fsdp_tp --compression int8_ef --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --devices 4 --strategy auto --report-comm --compression int8_ef
 
 ``--devices N`` (default 1) sets the world: with N > 1 a ``dist.pool.Pool``
 of N ranks over gloo (under ``cuda`` every rank shares the card; under
@@ -19,6 +21,15 @@ with N > 1 is not ported (the run exits with the reference's reason);
 of 8 placeholder host devices when none is asked for; the port's default
 is one card, the single-device step.
 
+``--strategy auto`` asks the planner (``perf.planner.choose_strategy``) to
+rank the registry's strategies by their calibrated collective cost, with
+feasibility (batch divisibility, the per-rank memory estimate) judged on
+the mesh this run builds; it prints the reference's ``planner:`` line.
+``--report-comm`` prints the cost model's per-step estimate for the
+strategy run (``comm estimate [...]``). The calibration is
+``load_calibration``'s: ``$REPRO_CALIBRATION`` when set, else the
+checked-in artifact.
+
 Weights are the port's own seeded random init, drawn on the device; the
 batches are the reference's deterministic step-indexed tokens (and stub
 frames for an encoder-decoder). The step updates the parameters, moments
@@ -32,12 +43,13 @@ first, each timed on the host clock ending in a synchronise),
 ``tokens_per_s`` (batch × seq over that median), ``param_count`` and
 ``tree_params`` (the config's count and the weights' own, which differ for
 a hybrid), per step the MoE ``aux`` loss and, with an MTP head,
-``mtp_ce``; a sharded run adds ``pool`` (ranks, backend, cards) and
+``mtp_ce``, and ``planner`` (``--strategy auto``: the decision and every
+candidate) and ``comm`` (``--report-comm``), the keys the ``--dry-run``
+JSON carries too; a sharded run adds ``pool`` (ranks, backend, cards) and
 ``ranks``, one entry per rank: its device, peak memory, the median ms of
 each region of its step (``gather_params``, ``grad_compute``,
 ``grad_reduce``, ``update``) and its kernel launches per step.
-Checkpointing, fault tolerance, the planner (``--strategy auto``) and
-tracing are not ported yet.
+Checkpointing, fault tolerance and tracing are not ported yet.
 """
 from __future__ import annotations
 
@@ -66,8 +78,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compression", default="none",
                     choices=["none", "bf16", "int8", "int8_ef"])
-    ap.add_argument("--strategy", default="fsdp_tp", choices=sorted(STRATEGIES),
-                    help="parallelism strategy of a sharded run")
+    ap.add_argument("--strategy", default="fsdp_tp",
+                    choices=sorted(STRATEGIES) + ["auto"],
+                    help="parallelism strategy of a sharded run; 'auto' defers "
+                         "to the planner (perf.planner.choose_strategy), which "
+                         "ranks the feasible registry strategies by calibrated "
+                         "collective cost + memory headroom")
     ap.add_argument("--mode", default="auto", choices=["auto", "sharded", "gspmd"],
                     help="sharded = the manual-collectives step over the pool; "
                          "gspmd = the single-device step (one device only); "
@@ -82,9 +98,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cpu runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--report-comm", action="store_true",
+                    help="estimate the per-step collective time from the "
+                         "calibrated cost model (perf.costmodel) and report it")
     ap.add_argument("--dry-run", action="store_true",
                     help="print the execution plan as JSON and exit")
     return ap
+
+
+def _comm_estimate(cfg, args, n_dev: int):
+    """The cost model's collective estimate for the run's strategy, through
+    the shared prediction path (``perf.predict.estimate_comm``)."""
+    from repro_torch.dist.compression import WIRE_BITS
+    from repro_torch.perf.planner.space import model_comm_sizes
+    from repro_torch.perf.predict import estimate_comm
+
+    param_bytes, act_bytes = model_comm_sizes(cfg, args.batch, args.seq)
+    return estimate_comm(args.strategy, n_dev, param_bytes,
+                         wire_bits=WIRE_BITS[args.compression],
+                         act_bytes=act_bytes, detail=True).to_dict()
 
 
 def _pick_mode(args, tcfg, mesh, n_dev: int):
@@ -217,11 +249,30 @@ def main(argv=None):
     n_dev = max(args.devices, 1)
     plan = plan_remesh(n_dev)
     mesh = plan.axes()
+    decision = None
+    if args.strategy == "auto":
+        from repro_torch.perf.planner import choose_strategy
+        # feasibility is judged on the mesh this run builds
+        decision = choose_strategy(cfg, batch=args.batch, seq=args.seq,
+                                   n_devices=n_dev, optimizer=args.optimizer,
+                                   compression=args.compression,
+                                   mesh_axes=dict(mesh))
+        args.strategy = decision.strategy
+        note = "" if decision.calibrated else "  [uncalibrated α-β defaults in use]"
+        print(f"planner: --strategy auto -> {args.strategy} ({decision.reason}){note}",
+              flush=True)
     path, path_reason = _pick_mode(args, tcfg, mesh, n_dev)
     print(f"device={device} ({device_name(device)}) arch={cfg.name} "
           f"params={cfg.param_count()} devices={n_dev} mesh={plan.mesh_shape} "
           f"strategy={args.strategy} path={path} ({plan.reason}; {path_reason})",
           flush=True)
+    planned = {}                 # the planner's and cost model's report keys
+    if args.report_comm:
+        comm = planned["comm"] = _comm_estimate(cfg, args, n_dev)
+        print(f"comm estimate [{comm['calibration']}]: {comm['per_step_ms']:.3f} "
+              f"ms/step over {comm['mesh_axes']}", flush=True)
+    if decision is not None:
+        planned["planner"] = decision.to_dict()
     if path == "gspmd" and n_dev > 1:
         raise SystemExit(f"path gspmd ({path_reason}) over {n_dev} devices: "
                          "gspmd not ported (the port runs it on one device only)")
@@ -231,7 +282,7 @@ def main(argv=None):
                "strategy": args.strategy, "compression": args.compression,
                "optimizer": args.optimizer, "path": path,
                "path_reason": path_reason, "steps": args.steps,
-               "batch": args.batch, "seq": args.seq}
+               "batch": args.batch, "seq": args.seq, **planned}
         print(json.dumps(out))
         return out
 
@@ -281,7 +332,7 @@ def main(argv=None):
            "tokens_per_s": (args.batch * args.seq / (step_ms / 1e3)
                             if step_ms else None),
            "param_count": cfg.param_count(), "tree_params": n_tree,
-           "aux": aux, **extra}
+           "aux": aux, **planned, **extra}
     if mtp_ce:
         out["mtp_ce"] = mtp_ce
     print(json.dumps(out))

@@ -1,5 +1,15 @@
 """Fit link parameters from measured residuals; serialize the calibration
-(``repro.perf.costmodel.calibrate`` without its CLI).
+(``repro.perf.costmodel.calibrate``).
+
+  PYTHONPATH=src python -m repro_torch.perf.costmodel.calibrate \
+      --rows ROWS --out CALIBRATION [--per-collective] [--overlap]
+
+The CLI fits a calibration from saved sweep rows (``python -m
+repro_torch.launch.fit_perfmodel --sharded --rows-out ROWS``) on
+``--device`` and writes it to ``--out``, which is required unless
+``--dry-run`` is given (the plan printed, nothing fitted or written). A
+planner or sweep priced by that link is ``$REPRO_CALIBRATION`` pointed at
+the file.
 
 A measured sweep records, per trial, both the real sharded iteration time
 (``t_measured_sharded``) and the single-device compute time of the
@@ -21,6 +31,7 @@ or unparsable.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 from dataclasses import dataclass, field
@@ -129,10 +140,10 @@ class Calibration:
 
 DEFAULT_CALIBRATION = Calibration()
 
-REGEN_HINT = ("regenerate it with `PYTHONPATH=src python -m "
-              "repro.perf.costmodel.calibrate --rows "
-              "benchmarks/artifacts/lenet_sweep_measured.json` or the "
-              "full `python -m benchmarks.measured_sweep`")
+REGEN_HINT = ("fit one with `PYTHONPATH=src python -m "
+              "repro_torch.perf.costmodel.calibrate --rows ROWS --out PATH` "
+              "from the rows of `python -m repro_torch.launch.fit_perfmodel "
+              "--sharded --rows-out ROWS`")
 
 
 def _fail_soft(path: str, problem: str, strict: bool) -> Calibration:
@@ -499,3 +510,63 @@ def resimulate_rows(rows: Sequence[Mapping],
                     "overlap": rho, "t_simulated": t_sim,
                     "time_ms": t_sim, "calibration": calibration.label})
     return out
+
+
+# ---------------------------------------------------------------------------
+# CLI
+# ---------------------------------------------------------------------------
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="Fit α-β link parameters from measured sweep residuals")
+    ap.add_argument("--rows", default=os.path.join(
+        os.path.dirname(default_calibration_path()),
+        "lenet_sweep_measured.json"),
+        help="sweep rows JSON (fit_perfmodel --sharded --rows-out)")
+    ap.add_argument("--out", default="",
+                    help="calibration JSON to write (required unless "
+                         "--dry-run)")
+    ap.add_argument("--per-collective", action="store_true",
+                    help="fit one link per collective kind")
+    ap.add_argument("--overlap", action="store_true",
+                    help="jointly fit per-strategy overlap factors ρ "
+                         "(exposed comm = max(0, comm − ρ·compute))")
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--maxiter", type=int, default=200)
+    ap.add_argument("--dry-run", action="store_true",
+                    help="print the plan and exit without fitting")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the DE fit runs on")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if not args.out and not args.dry_run:
+        ap.error("--out is required: the calibration is written only where "
+                 "it is told (or give --dry-run)")
+    plan = {"rows": args.rows, "out": args.out,
+            "per_collective": bool(args.per_collective),
+            "overlap": bool(args.overlap),
+            "seeds": args.seeds, "maxiter": args.maxiter}
+    print(json.dumps({"calibrate_plan": plan}), flush=True)
+    if args.dry_run:
+        return plan
+
+    with open(args.rows) as f:
+        rows = json.load(f)
+    cal = fit_calibration(rows, per_collective=args.per_collective,
+                          overlap=args.overlap,
+                          seeds=tuple(range(args.seeds)),
+                          maxiter=args.maxiter,
+                          source=os.path.relpath(args.rows),
+                          device=args.device)
+    cal.save(args.out)
+    print(json.dumps({"calibration": cal.to_dict()}, indent=1))
+    print(f"wrote {args.out}", flush=True)
+    return cal
+
+
+if __name__ == "__main__":
+    main()

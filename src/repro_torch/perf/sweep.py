@@ -268,7 +268,8 @@ def lenet_partition_specs(cfg: LeNet5Config, params,
     return entry_specs, gather_specs, part_axes
 
 
-def make_sharded_iteration(cfg: LeNet5Config, mode: str, mesh: Mesh, params):
+def make_sharded_iteration(cfg: LeNet5Config, mode: str, mesh: Mesh, params,
+                           reset: bool = True):
     """One real distributed training iteration on this rank of ``mesh``:
     ``(local params, local batch, rng) -> (new local params, mean loss)``,
     with ``(iteration, entry_specs, batch_spec)`` returned; ``params`` are
@@ -284,7 +285,11 @@ def make_sharded_iteration(cfg: LeNet5Config, mode: str, mesh: Mesh, params):
     the sgd or t = 1 adam step on the local blocks, and the loss averaged
     over all axes. Compiled modes are ``torch.compile(fullgraph=True,
     dynamic=False)`` of the whole body, collectives and codec kernels
-    included; ``jit_donate`` writes the new blocks into the given ones."""
+    included; ``jit_donate`` writes the new blocks into the given ones.
+    A compiled mode first resets dynamo (one compiled iteration alive, as
+    a sweep holds); ``reset=False`` keeps the iterations compiled before
+    alive, for a caller that holds several (``launch.plan``'s validation),
+    which must then allow dynamo as many graphs of the body's code."""
     axis_names = mesh.axis_names
     entry_specs, gather_specs, part_axes = lenet_partition_specs(
         cfg, params, dict(mesh.shape))
@@ -328,7 +333,8 @@ def make_sharded_iteration(cfg: LeNet5Config, mode: str, mesh: Mesh, params):
         return iteration, entry_specs, batch_spec
     if mode not in ("jit", "jit_donate"):
         raise ValueError(f"unknown mode {mode!r}; have {MODES}")
-    torch.compiler.reset()
+    if reset:
+        torch.compiler.reset()
     fn = iteration if mode == "jit" else iteration_in_place
     return (torch.compile(fn, fullgraph=True, dynamic=False), entry_specs,
             batch_spec)

@@ -46,6 +46,7 @@ graph first), as ``jax.jit`` without donation returns new buffers.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import defaultdict
 from contextlib import contextmanager, nullcontext
@@ -385,6 +386,56 @@ def _overlap_plans(cfg: ModelConfig, tcfg: TrainConfig, mesh, p_specs, shapes):
 
     return tree_map(one, shapes, MD.param_axes(shapes), p_specs,
                     _streamable_tree(cfg, shapes))
+
+
+def overlap_transient_bytes(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+                            strategy="dp", state_specs=None) -> Tuple[int, int]:
+    """(eager_bytes, stream_chunk_bytes) the overlap body's gathers add per
+    rank beyond the persistent parameter shards (the planner's memory term).
+
+    Eager tensors (embedding, lm_head, norms, zamba groups, an
+    encoder-decoder's segments) hold their whole gathered array for the
+    step; a streamed segment materializes one layer's gathered slice at a
+    time, so its term is the largest single-layer chunk over the segments.
+    ``LocalDim`` dims are never gathered. ``mesh`` may be a ``Mesh`` or a
+    plain ``{axis: size}`` mapping; nothing is allocated (``param_shapes``).
+    The arithmetic runs over the reference's leaves (``tree.reference_leaves``:
+    a segment's layers summed into its stacked leaf) with the reference's
+    floor divisions, so the integers are the reference's."""
+    strat = resolve_strategy(strategy)
+    shapes = MD.param_shapes(cfg)
+    if state_specs is None:
+        state_specs = sharded_state_specs(cfg, tcfg, mesh, strat, shapes=shapes)
+    # the wire format changes no byte; "none" keeps the int8_ef check on
+    # model-local tensors (a step the body cannot run) out of the pricing
+    plans = _overlap_plans(cfg, dataclasses.replace(tcfg, grad_compression="none"),
+                           mesh, state_specs.params, shapes)
+    sizes = axis_sizes(mesh)
+    per = []
+    tree_map(lambda p, pl: per.append((p.numel() * p.element_size(), pl)),
+             shapes, plans)
+    eager, stream = 0, defaultdict(int)
+    for key, idx in reference_leaves(shapes):
+        nbytes = sum(per[i][0] for i in idx)
+        pl = per[idx[0]][1]
+        local, stream_div = 1, 1
+        for ax in pl.axes:
+            if isinstance(ax, LocalDim):
+                local *= int(ax.size)
+            elif isinstance(ax, StreamDim):
+                for a in ax.entry if isinstance(ax.entry, tuple) else (ax.entry,):
+                    stream_div *= int(sizes.get(a, 1))
+        if pl.streamed:
+            if stream_div > 1:        # else a degenerate mesh: nothing gathered
+                stream[key[1]] += (nbytes // local) // max(len(idx), 1)
+            continue
+        gdiv = 1
+        for entry in pl.gather:
+            for a in () if entry is None else (
+                    entry if isinstance(entry, tuple) else (entry,)):
+                gdiv *= int(sizes.get(a, 1))
+        eager += nbytes // local - nbytes // (local * gdiv)
+    return int(eager), int(max(stream.values(), default=0))
 
 
 def _reduce_grads(grads, group, mode: str, ef, done=None):
