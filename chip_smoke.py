@@ -4,7 +4,14 @@ plain PyTorch versions.
 
   python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Phases, by number. They run in the order 1-13, 22 (a), 16-19, then on one
+pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23 (c). The
+pool starts in the background before phase 16, beside the single-device
+phases 16-19, and phase 14 runs in a process of its own
+(``--paper-pipeline``) beside phases 22 (b) to 23; its output is printed
+after phase 23. Any failure ends the run with a non-zero exit code, and a run
+still going after ``WATCHDOG_S`` seconds prints every thread's stack and
+exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
@@ -52,7 +59,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    whose decode steps are then profiled (device busy time, idle share,
    top kernels); phases 6-7 are ``lm_serve``;
 8. full-width smollm-360m trained through ``repro_torch.launch.train.main``
-   (batch 8, seq 512, 8 steps of adamw with int8_ef compression), with
+   (batch 8, seq 512, 3 steps of adamw with int8_ef compression), with
    every kernel's launches counted over that run, flash attention's by
    design (the tile kernel only); the losses must be finite and fall; then
    the same step, which updates its state in place, profiled as in phase 7
@@ -65,10 +72,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     CUDA-core kernel in fp32, the tensor-core kernel in bf16) at full width:
     logits, conv tails and final SSD states asserted in fp32, reported in
     bf16; a bf16 decode step profiled;
-12. full-width mamba2-370m trained as in phase 8 (8 x 48 SSD launches, all
+12. full-width mamba2-370m trained as in phase 8 (4 x 48 SSD launches, all
     on the tensor-core kernel), then a train step profiled with its SSD
-    forward on the tensor-core kernel, on the CUDA-core kernel and on the
-    tensor-core kernel again;
+    forward on the tensor-core kernel and on the CUDA-core kernel;
 13. timings: each kernel, its plain version and the one-call library
     yardstick where there is one (the port never calls it), each the median
     of 50 runs timed with CUDA events, L2 flushed before each run, beside
@@ -119,9 +125,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     ``launch.serve.main`` as in phase 6 (1664 CUDA-core flash launches); its
     decode loop against a prefill forward, asserted in fp32, its bf16 decode
     steps profiled; trained through ``launch.train.main`` (batch 8, seq 512,
-    8 steps of adamw with int8_ef under remat "dots": every block's
-    attention in the forward and again in the backward's recompute, 416
-    launches), losses finite and falling, the peak memory printed and under
+    4 steps of adamw with int8_ef under remat "dots": every block's
+    attention in the forward and again in the backward's recompute, 52 a
+    step), losses finite and falling, the peak memory printed and under
     the card's; a train step profiled;
 17. full-width whisper-tiny, the same sequence: its encoder runs once per
     request over the 1500 stub frames of ``make_batch_for``, then each
@@ -151,19 +157,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 20. the sharded LM train step (``sharded_lm``): full-width smollm-360m
     through ``launch.train.main(["--devices", "4", "--strategy",
     "fsdp_tp", "--compression", "int8_ef", ...])`` (adamw, batch 8 x seq
-    512, a warm-up and 3 steps) over a world of 4 ranks sharing the card
-    (gloo, mesh data 2 x model 2, the legacy body): the path, mesh, pool
+    512, a warm-up and 2 steps) over 4 ranks of phase 15's pool sharing the
+    card (gloo, mesh data 2 x model 2, the legacy body): the path, mesh, pool
     and every rank on the card; step 0's loss against the single-device
     loss on the same batch and seed within the bf16 tier; per rank and
     step exactly 32 flash ``tile`` launches (its 4 rows) and one absmax +
     one quantize launch per parameter tensor (290); each rank's peak
-    memory and their sum under the card's. Then, on a pool of 4, one
+    memory and their sum under the card's. Then, on the same 4 ranks, one
     overlap-body step held to the legacy body's at the same mesh in fp32
     (the MLP split on model, attention streamed: 15 heads do not divide
     2) and a profiled legacy step per rank (device busy); then flash
     attention at the per-rank shape q [4, 512, 15, 64] against its plain
     version, timed beside SDPA ``is_causal`` and its bytes bound;
-21. the arch sweep (``arch_sweep_phase``), on phase 20's pool of 4: one
+21. the arch sweep (``arch_sweep_phase``), on the shared pool: one
     trial of ``perf.sweep.measure_arch_trial`` in mode "jit" (inductor,
     ``fullgraph=True``) for each family of ``ARCH_SWEEP_POINTS`` (one
     layer: lm fsdp_tp 2 x 2 with int8_ef, moe dp with bf16 at n 2, ssm dp
@@ -202,6 +208,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     falling, exact flash and codec launches per rank and step; the planner's
     comm_ms printed beside the measured gather_params + grad_reduce a rank.
 
+23. sharded serving and the GSPMD train step over ranks sharing the card
+    (``sharded_serve_phase``, ``serve_fp32_phase``, ``gspmd_train_phase``):
+    (a) on 4 ranks of the pool, ``launch.serve.main(["--strategy", "tp",
+    "--devices", "4", ...])``: full-width qwen2.5-3b at mesh 2 x 2 (q and kv
+    heads and the MLP split, each rank on its 2 rows), bf16, batch 4,
+    prompt 32, gen 32, fed phase 6's tokens (teacher forcing) and held to
+    phase 6 at every step: the fp32 logits within ``TP_SERVE_TOL``, each
+    token the argmax of phase 6's logits to within twice that (and a bf16
+    ulp), exactly 36 ``split_kv`` flash launches a decode step a rank; (b) on phase 15's pool of 8,
+    ``launch.serve.serve_rank`` of qwen2.5-3b on 4 of its 36 layers in fp32
+    under fsdp_tp at 2 x 4 (attention whole: 2 kv heads do not divide 4;
+    the MLP split), every generated step's fp32 logits within 1e-4 of one
+    device on the card, the tokens equal, ``cuda_core`` flash only; (c) on
+    4 ranks of the pool, ``launch.train.main(["--devices", "4", "--mode",
+    "gspmd", "--strategy", "fsdp_tp", ...])``: full-width smollm-360m,
+    adamw + int8_ef, batch 8 x 512, 3 steps, each loss within
+    ``GSPMD_LOSS_TOL`` and each grad norm within ``GSPMD_GNORM_RTOL`` of
+    phase 8's at the same step, exactly 32 ``tile`` + 290 absmax +
+    290 quantize + 290 dequantize launches a rank a step, peak memory and
+    the step's transient bytes printed.
+
+What keeps the run inside its time (PERF.md §4): one pool of 8 for phases
+15 and 20-23, started and warmed in the background; phase 14 beside phases
+22 (b) to 23; the single-device full-width trainings of smollm-360m (3 steps),
+mamba2, zamba2 and gemma2 (4 steps) where every LM trained 8; phase 20 a
+warm-up and 2 steps where it took 3; one profiled train step where the
+profiles read 2, and mamba2's step profiled once on each SSD design. No
+gate was dropped.
+
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -212,12 +247,14 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import unittest.mock
@@ -228,6 +265,18 @@ ARCH = "qwen2.5-3b"
 BATCH, PROMPT, GEN = 4, 32, 32
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+# Single-device training steps of the full-width runs: the loss gate's
+# minimum where a step is device-bound (mamba2 ~2.0 s, zamba2 1.86 s,
+# gemma2 0.83 s a step on the H100), and smollm-360m at phase 23 (c)'s
+# three GSPMD steps, whose losses are held to phase 8's (the same config
+# and lr schedule); TRAIN_STEPS for the others. A profiled train step
+# traces PROFILE_TRAIN_STEPS steps.
+TRAIN_STEPS_BY_ARCH = {"smollm-360m": 3, "mamba2-370m": 4, "zamba2-1.2b": 4,
+                       "gemma2-2b": 4}
+PROFILE_TRAIN_STEPS = 1
+# What later phases hold to phases 6 and 8: phase 6's qwen2.5-3b tokens and
+# fp32 step logits, phase 8's smollm-360m losses and grad norms.
+SERVED, TRAINED = {}, {}
 SSM_ARCH = "mamba2-370m"      # served and trained at the shapes above
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12,      # dense tensor-core bf16
@@ -267,11 +316,70 @@ SSD_CASES = [
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
+CHILDREN = []     # processes started with subprocess (phase 14's)
+
+
+def stop_children() -> None:
+    """Kill every process this one started and has not joined (a pool's
+    ranks, phase 14's process), so that the interpreter's exit does not
+    wait for them."""
+    import multiprocessing
+    for child in multiprocessing.active_children():
+        child.kill()
+    for child in CHILDREN:
+        if child.poll() is None:
+            child.kill()
+
+
 def phase(name: str) -> None:
-    print(f"== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
+    """The phase's banner, on standard output and standard error alike, so
+    that a run cut short shows in either where its time went."""
+    line = f"== {name} [{time.perf_counter() - T_START:.1f} s]"
+    print(line, flush=True)
+    print(f"chip_smoke: {line}", file=sys.stderr, flush=True)
+
+
+# A run still going after this many seconds prints every thread's stack to
+# standard error, stops the processes it started and exits non-zero, inside
+# the 1200 s the script is given: what held it up is then on record.
+WATCHDOG_S = 1170
+
+
+def start_watchdog(seconds: float) -> None:
+    def fire():
+        print(f"chip_smoke: still running after {seconds:.0f} s; every thread's "
+              f"stack:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        stop_children()
+        os._exit(1)
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+
+
+def launch_counters(FA, Q, SSD):
+    """({kernel: (module, counter)}, reset_counts, read_counts) over the
+    port's kernel wrappers' launch counters."""
+    counters = {"flash_attention": (FA, "LAUNCHES"),
+                "quantize_absmax": (Q, "ABSMAX_LAUNCHES"),
+                "quantize_int8": (Q, "QUANTIZE_LAUNCHES"),
+                "dequantize_int8": (Q, "DEQUANTIZE_LAUNCHES"),
+                "ssd_scan": (SSD, "LAUNCHES")}
+
+    def reset_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        FA.LAUNCHES_BY_VARIANT = dict.fromkeys(FA.VARIANTS, 0)
+        SSD.LAUNCHES_BY_VARIANT = dict.fromkeys(SSD.VARIANTS, 0)
+
+    def read_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    return counters, reset_counts, read_counts
 
 
 def nvidia_smi() -> str:
@@ -398,6 +506,57 @@ ARCH_MAE_BOUND = 1.25        # port's train MAE / the recorded one
 # two trials each, which keep every gate and the whole run well inside its
 # time limit.
 SWEEP_TRIALS = {"eager": 90, "jit": 2, "jit_donate": 2}
+
+
+class PaperPipelineProcess:
+    """Phase 14 in a process of its own (``python3 chip_smoke.py
+    --paper-pipeline``), started after phase 15: phase 14 is host-bound
+    (inductor's compiles, the DE fits) on a core or two, and phases 22 (b)
+    to 23 leave most of the eight cores idle (one to four ranks compile or
+    wait on gloo), so it costs the run about nothing. Its output goes to a
+    file, printed whole by ``finish``."""
+
+    def __init__(self):
+        print("  phase 14 (the paper pipeline) starts in a process of its own beside "
+              "phases 22 (b) to 23; its output follows phase 23", flush=True)
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--paper-pipeline"],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO)
+        CHILDREN.append(self.proc)
+
+    def finish(self):
+        """Wait for it, print its output; fail if it failed."""
+        rc = self.proc.wait()
+        wall = time.perf_counter() - self.t0
+        self.log.seek(0)
+        sys.stdout.write(self.log.read())
+        self.log.close()
+        print(f"  phase 14's process ended with code {rc} after {wall:.1f} s", flush=True)
+        if rc != 0:
+            fail(f"phase 14 (the paper pipeline) failed in its process, exit code {rc}")
+
+
+def paper_pipeline_main() -> None:
+    """``python3 chip_smoke.py --paper-pipeline``: phase 14 alone, with the
+    main run's settings (TF32 off) and its own launch counters."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd_scan as SSD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, reset_counts, read_counts = launch_counters(FA, Q, SSD)
+    try:
+        paper_pipeline(torch, torch.device("cuda", 0), nvidia_smi(), reset_counts,
+                       read_counts)
+    finally:
+        from torch._inductor.async_compile import shutdown_compile_workers
+        shutdown_compile_workers()
 
 
 def paper_pipeline(torch, dev, card, reset_counts, read_counts):
@@ -639,7 +798,62 @@ def _plain_collective(torch, xs, mode):
             torch.stack(residuals).numpy() if residuals else None)
 
 
-def sharded_pipeline(torch, dev, card, then=None):
+def warm_inductor(device) -> float:
+    """Compile and run a small gradient step on ``device``, so that this
+    process's first real compile does not also pay inductor's set-up (~25 s
+    a process on the H100 machines' 8-core hosts). The seconds it took."""
+    import torch
+    t0 = time.perf_counter()
+
+    def loss(w, x):
+        return torch.tanh(x @ w).square().mean()
+
+    step = torch.compile(torch.func.grad_and_value(loss), fullgraph=True)
+    w = torch.randn(16, 16, device=device)
+    g, _ = step(w, torch.randn(8, 16, device=device))
+    g.sum().item()
+    return time.perf_counter() - t0
+
+
+def warm_compile(ctx) -> float:
+    """Pool job: ``warm_inductor`` on every rank but 0, this process, which
+    warmed while the kernels built."""
+    return 0.0 if ctx.rank == 0 else warm_inductor(ctx.device)
+
+
+class OpeningPool(threading.Thread):
+    """A ``dist.pool.Pool`` started in the background, each spawned rank
+    then warmed by ``warm_compile``: the ranks import torch, take the card
+    and set up inductor while this process runs the phases before the
+    pool's (one card, no pool). ``get`` waits for it."""
+
+    def __init__(self, world, dev):
+        super().__init__(daemon=True, name="pool-start")
+        self.world, self.dev = world, dev
+        self.pool = self.error = self.up_s = self.warm_s = None
+        self.t0 = time.perf_counter()
+        self.start()
+
+    def run(self):
+        from repro_torch.dist.pool import Pool
+        try:
+            self.pool = Pool(world=self.world, device=self.dev)
+            self.up_s = time.perf_counter() - self.t0
+            self.warm_s = self.pool.run(warm_compile, mesh={"data": self.world})
+        except BaseException as e:          # handed to the caller by get
+            self.error = e
+
+    def get(self):
+        """(the open pool, seconds it took to start, each rank's warm-up
+        seconds, seconds waited here)."""
+        t0 = time.perf_counter()
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.pool, self.up_s, self.warm_s, time.perf_counter() - t0
+
+
+def sharded_pipeline(torch, dev, card, opening, then=None):
     """Phase 15: the sharded half of the paper's pipeline on the card, over
     one pool of 8 ranks sharing it (gloo). (a) the compressed collectives
     against rank 0's plain emulation; (b) the sharded LeNet iteration of
@@ -647,22 +861,25 @@ def sharded_pipeline(torch, dev, card, then=None):
     against eager, with exact codec launches; (c) a short measured sweep
     through ``fit_perfmodel.main(["--sharded", ...])``. Returns the kernel
     launches of every rank summed over (c), the path's run, and what
-    ``then(pool)`` returned: a later phase run on the same pool."""
+    ``then(pool)`` returned: a later phase run on the same pool.
+    ``opening``: the ``OpeningPool`` of 8 ranks started before phase 16."""
     import numpy as np
 
     from repro_torch.configs.lenet5 import LeNet5Config
     from repro_torch.data import lenet_batch
     from repro_torch.dist import probes
-    from repro_torch.dist.pool import Pool
     from repro_torch.launch import fit_perfmodel
     from repro_torch.models.lenet import init_lenet, lenet_loss
     from repro_torch.perf import sweep as SW
     from repro_torch.perf.costmodel import mesh_axes_for
 
     t_phase = time.perf_counter()
-    with Pool(world=SHARDED_WORLD, device=dev) as pool:
+    pool, up_s, warm_s, waited_s = opening.get()
+    with pool:
         print(f"  pool of {pool.world} ranks ({pool.backend}) on {dev} up in "
-              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+              f"{up_s:.1f} s, started before phase 16, then a first compile on "
+              f"ranks 1-{pool.world - 1} in {max(warm_s):.1f} s; waited "
+              f"{waited_s:.1f} s for it here", flush=True)
 
         # -- a. the collectives ------------------------------------------------
         t0 = time.perf_counter()
@@ -833,6 +1050,7 @@ def sharded_pipeline(torch, dev, card, then=None):
             with open(path) as f:
                 rows = json.load(f)
         per_rank = pool.run(probes.read_launches, mesh={"data": pool.world})
+        own_s = time.perf_counter() - t_phase
         later = then(pool) if then is not None else None
     launches = {k: sum(c[k] for c in per_rank) for k in per_rank[0]}
     ok = [r for r in rows if "error" not in r]
@@ -867,7 +1085,7 @@ def sharded_pipeline(torch, dev, card, then=None):
           + ", ".join(f"{k} {v['test_mape']:.4f}" for k, v in report["sharded_fits"].items())
           + f"; sweep {report['sweep_s']:.1f} s; launches over every rank {launches}; "
           f"card {card}", flush=True)
-    print(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+    print(f"  phase 15 took {own_s:.1f} s; card {card}", flush=True)
     return launches, later
 
 
@@ -878,7 +1096,7 @@ def sharded_pipeline(torch, dev, card, then=None):
 LG_ARCH = "gemma2-2b"          # lg_pair, head_dim 256, softcaps 50 and 30
 ENCDEC_ARCH = "whisper-tiny"   # enc_attn / dec_attn over 1500 stub frames
 LM_REMAT = "dots"
-# adamw's peak lr in the 8-step trainings (no warmup at 8 steps). gemma2's
+# adamw's peak lr in the short trainings (no warmup under 10 steps). gemma2's
 # 2304-wide layers move by about d_model·lr of their output scale on Adam's
 # first, sign-like step: at the default 3e-4 its loss rose from 12.81 to
 # 16.11 on step 2 before it fell; at 3e-5 it falls on every step.
@@ -1016,9 +1234,13 @@ def lm_serve(torch, dev, card, arch, env, prefix, n_layers=None, reduced_size=Fa
     phase(f"serve {arch}{cut} (batch {BATCH}, prompt {PROMPT}, gen {GEN})")
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
+    keep = arch == ARCH and n_layers is None and not reduced_size
     with registry:
         served = serve.main(["--arch", arch, *extra, "--batch", str(BATCH), "--prompt-len",
-                             str(PROMPT), "--gen", str(GEN), "--device", "cuda"])
+                             str(PROMPT), "--gen", str(GEN), "--device", "cuda"],
+                            keep_logits=keep)
+    if keep:                                   # phase 23 (a) holds the sharded server to it
+        SERVED[arch] = (served.tokens.cpu(), [x.float().cpu() for x in served.step_logits])
     got, got_designs, got_ssd = env.read_counts(), env.read_variants(), env.read_ssd_variants()
     rep = served.report
     _check_param_count(rep, full, f"{arch} serve")
@@ -1147,7 +1369,8 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
              compression="int8_ef", n_layers=None, reduced_size=False):
     """An LM at full width (``n_layers`` cuts its depth) or ``--reduced``
     (``reduced_size``, at sequence REDUCED_SEQ), trained: (c) through
-    ``launch.train.main`` (8 steps of ``optimizer`` at ``lr`` with
+    ``launch.train.main`` (``TRAIN_STEPS_BY_ARCH``'s steps, else
+    ``TRAIN_STEPS``, of ``optimizer`` at ``lr`` with
     ``compression`` under ``remat``) with every kernel's launches counted,
     flash attention's and the SSD scan's by design, losses finite and
     falling, an MoE's aux loss finite and positive, an MTP head's loss
@@ -1166,15 +1389,17 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
 
     full, registry, extra, cut = _lm_config(arch, n_layers, reduced_size)
     seq = REDUCED_SEQ if reduced_size else TRAIN_SEQ
+    steps = (TRAIN_STEPS if reduced_size or n_layers
+             else TRAIN_STEPS_BY_ARCH.get(arch, TRAIN_STEPS))
 
     # ---- (c) train ------------------------------------------------------------
     phase(f"train {arch}{cut} (batch {TRAIN_BATCH}, seq {seq}, "
-          f"{TRAIN_STEPS} steps, {optimizer} lr {lr:g}, {compression}, remat {remat})")
+          f"{steps} steps, {optimizer} lr {lr:g}, {compression}, remat {remat})")
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
     with registry:
         trained = train.main(["--arch", arch, *extra, "--batch", str(TRAIN_BATCH), "--seq",
-                              str(seq), "--steps", str(TRAIN_STEPS), "--optimizer",
+                              str(seq), "--steps", str(steps), "--optimizer",
                               optimizer, "--lr", str(lr), "--compression", compression,
                               "--remat", remat, "--device", "cuda", "--log-every", "1"])
     peak = torch.cuda.max_memory_allocated()
@@ -1190,12 +1415,12 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
     n_tensors = sum(len(idx) for _, idx in groups)
     # a vision stub's sequence is its patches and the tokens left beside them
     step_designs, n_flash, n_ssd = _train_work(MD, FA, full, TRAIN_BATCH, seq,
-                                               remat, torch.bfloat16, TRAIN_STEPS)
+                                               remat, torch.bfloat16, steps)
     want = {k: 0 for k in got}
     want["flash_attention"], want["ssd_scan"] = n_flash, n_ssd
     if compression != "none":
         for k in ("quantize_absmax", "quantize_int8", "dequantize_int8"):
-            want[k] = TRAIN_STEPS * n_tensors
+            want[k] = steps * n_tensors
     losses, aux, mtp = trained["losses"], trained["aux"], trained.get("mtp_ce", [])
     print(f"  launches {got} (expected {want}: {n_tensors} parameter tensors in "
           f"{len(groups)} reference leaves); step_ms {trained['step_ms']} tokens_per_s "
@@ -1208,9 +1433,9 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
         fail(f"{arch} train launched the kernels {got}, expected {want}")
     env.gate_variants(f"{arch} train", got_designs, **step_designs)
     env.gate_ssd_variants(f"{arch} train", got_ssd, **({"mma": n_ssd} if n_ssd else {}))
-    if full.mtp_depth and len(mtp) != TRAIN_STEPS:
+    if full.mtp_depth and len(mtp) != steps:
         fail(f"{arch} train reported no MTP loss every step: {mtp}")
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses + aux + mtp)):
+    if len(losses) != steps or not all(np.isfinite(losses + aux + mtp)):
         fail(f"{arch} train losses not finite: {losses}, aux {aux}, mtp_ce {mtp}")
     if full.moe and not all(a > 0 for a in aux):
         fail(f"{arch} train has no aux loss: {aux}")
@@ -1218,13 +1443,15 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
         fail(f"{arch} train loss did not fall: {losses}")
     if not peak < card_bytes:
         fail(f"{arch} train peak memory {peak} is not under the card's {card_bytes}")
+    if arch == TRAIN_ARCH and not (n_layers or reduced_size):
+        TRAINED[arch] = (losses, trained["grad_norm"])  # phase 23 (c) holds the GSPMD step to them
     del trained
     torch.cuda.empty_cache()
 
     # ---- (d) a profiled train step: launch.train's step ---------------------------
     tcfg = TrainConfig(optimizer=optimizer, learning_rate=lr, grad_compression=compression,
-                       remat_policy=remat, total_steps=TRAIN_STEPS,
-                       warmup_steps=TRAIN_STEPS // 10)
+                       remat_policy=remat, total_steps=steps,
+                       warmup_steps=steps // 10)
     holder = [TS.init_train_state(full, tcfg, seed=0, device=dev)]
     tbatch = {k: v.to(dev) for k, v in make_batch_for(
         full, TRAIN_BATCH, seq, step=0).items()}
@@ -1233,7 +1460,7 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
     def train_one():
         holder[0], _ = step_fn(holder[0], tbatch)
 
-    profile_steps(torch, train_one, 2, f"{arch} train step{cut}, bf16, "
+    profile_steps(torch, train_one, PROFILE_TRAIN_STEPS, f"{arch} train step{cut}, bf16, "
                   f"batch {TRAIN_BATCH} x seq {seq}, {optimizer} + {compression}, "
                   f"remat {remat}", card)
     del holder, tbatch, step_fn
@@ -1244,32 +1471,31 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
 
 # Phase 20: the sharded LM train step. launch.train over a world of 4 ranks
 # sharing the card (gloo), mesh plan_remesh(4) = (data 2, model 2), fsdp_tp,
-# adamw + int8_ef, a warm-up step then 3 (the report's medians read steps
-# 1..3). Gates: step 0's loss against the single-device loss on the same
+# adamw + int8_ef, a warm-up step then 2 (the report's medians read steps
+# 1..2), on 4 ranks of the pool that phases 15 and 20-23 share. Gates: step 0's loss against the single-device loss on the same
 # batch and seed within the bf16 tier, |d| <= 1e-5 + |loss| / 256; exact
 # launches per rank per step; peak memory. Then one overlap-body step held
 # to the legacy body's at the same mesh in fp32 (sgd, b1 0, no decay, no
 # clip, lr 1: g = p0 - p1), per tensor within the reference test's
 # overlap-vs-legacy tolerance 2e-5 + 1e-5 * max|g_legacy|.
-SHARDED_LM_RANKS, SHARDED_LM_STRATEGY, SHARDED_LM_STEPS = 4, "fsdp_tp", 1 + 3
+SHARDED_LM_RANKS, SHARDED_LM_STRATEGY, SHARDED_LM_STEPS = 4, "fsdp_tp", 1 + 2
 SHARDED_LM_LOSS_TIER = 1 / 256
 SHARDED_BODIES_FLOOR = 2e-5
 
 
-def sharded_lm(torch, dev, card, then=None):
+def sharded_lm(torch, dev, card, pool, then=None):
     """Phase 20 (a, b): the sharded train step of smollm-360m at full width,
     driven through
-    ``launch.train.main(["--devices", "4", ...])``, then both bodies on one
-    pool of 4 ranks and a profiled step per rank. Returns ({kernel:
-    launches summed over ranks and steps}, per-rank shape of the flash
-    calls, the numbers printed, what ``then(pool)`` returned: a later
-    phase run on the same pool)."""
+    ``launch.train.main(["--devices", "4", ...])``, then both bodies and a
+    profiled step per rank, on 4 ranks of phase 15's pool, which
+    ``then(pool)`` gets next (phases 21, 22 (c) and 23 (a, c)). Returns
+    ({kernel: launches summed over ranks and steps}, per-rank shape of the
+    flash calls, the numbers printed, what ``then(pool)`` returned)."""
     import numpy as np
 
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import make_batch_for
     from repro_torch.dist import probes
-    from repro_torch.dist.pool import Pool
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
     from repro_torch.launch.mesh import plan_remesh
@@ -1284,12 +1510,17 @@ def sharded_lm(torch, dev, card, then=None):
     # ---- (a) launch.train over the world -------------------------------------
     phase(f"sharded {TRAIN_ARCH}: launch.train --devices {n} --strategy "
           f"{SHARDED_LM_STRATEGY} (mesh {mesh}), adamw + int8_ef, batch {B} x seq {S}, "
-          f"{SHARDED_LM_STEPS} steps, a world of {n} ranks over gloo sharing the card")
+          f"{SHARDED_LM_STEPS} steps, {n} of phase 15's {pool.world} ranks over gloo "
+          f"sharing the card")
     t0 = time.perf_counter()
+    held = pool.run(probes.release_memory, mesh={"data": pool.world})
+    print(f"  device bytes the ranks still reserve after phase 15's jobs: {held}",
+          flush=True)
     report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
                          SHARDED_LM_STRATEGY, "--compression", "int8_ef", "--optimizer",
                          "adamw", "--batch", str(B), "--seq", str(S), "--steps",
-                         str(SHARDED_LM_STEPS), "--device", dev.type, "--log-every", "1"])
+                         str(SHARDED_LM_STEPS), "--device", dev.type, "--log-every", "1"],
+                        pool=pool)
     run_s = time.perf_counter() - t0
     if report["path"] != "sharded" or report["mesh"] != [mesh["data"], mesh["model"]]:
         fail(f"sharded train ran path {report['path']} on mesh {report['mesh']}")
@@ -1363,12 +1594,12 @@ def sharded_lm(torch, dev, card, then=None):
     batch_np = {k: v.numpy() for k, v in make_batch_for(full, B, S, step=0).items()}
     live = sorted(MD.tp_live_axes(full, mesh["model"]))
     t0 = time.perf_counter()
-    with Pool(world=n, device=dev) as pool:
-        res = pool.run(probes.sharded_bodies, cfg32, sgd, SHARDED_LM_STRATEGY, 0,
-                       batch_np, mesh=mesh)
-        prof = pool.run(probes.sharded_train_profile, full, main_tcfg,
-                        SHARDED_LM_STRATEGY, 0, batch_np, mesh=mesh)
-        later = then(pool) if then is not None else None
+    res = pool.run(probes.sharded_bodies, cfg32, sgd, SHARDED_LM_STRATEGY, 0,
+                   batch_np, mesh=mesh)
+    prof = pool.run(probes.sharded_train_profile, full, main_tcfg,
+                    SHARDED_LM_STRATEGY, 0, batch_np, mesh=mesh)
+    pool.run(probes.release_memory, mesh=mesh)
+    later = then(pool) if then is not None else None
     worst = 0.0
     for j in range(len(res[0]["err"])):
         gmax = max(r["gmax"][j] for r in res)
@@ -1397,7 +1628,7 @@ def sharded_lm(torch, dev, card, then=None):
 
 
 # Phase 21: one compiled trial of the arch sweep a family, at n <= 4 over
-# the ranks of phase 20's pool (``perf.sweep.measure_arch_trial``, mode
+# the ranks of the shared pool (``perf.sweep.measure_arch_trial``, mode
 # "jit", inductor); the fields are ``perf.sweep.ArchPoint``'s. Inductor's
 # compiles, not the steps, set the phase's time: 39-51 s a step on one
 # device and 58-86 s on the ranks for fsdp_tp, tp and fsdp points at one
@@ -1515,7 +1746,7 @@ def arch_sweep_phase(torch, dev, card, pool, env):
     import torch._inductor.config as inductor_config
 
     phase(f"arch sweep: one compiled trial a family (lm, moe, ssm), sharded probes "
-          f"over {pool.world} gloo ranks sharing the card")
+          f"over gloo ranks sharing the card")
     t_phase = time.perf_counter()
     # this process compiles its probe while the ranks wait: all the cores
     # (the pool capped it at cores / world)
@@ -1756,10 +1987,10 @@ def planner_measure_phase(torch, dev, card, pool):
     return launches, numbers
 
 
-def auto_train_phase(torch, dev, card):
+def auto_train_phase(torch, dev, card, pool):
     """Phase 22 (c): ``launch.train --strategy auto --report-comm`` of
-    full-width smollm-360m over 4 ranks. Returns ({kernel: launches summed
-    over ranks and steps}, numbers)."""
+    full-width smollm-360m over 4 ranks of ``pool``. Returns ({kernel:
+    launches summed over ranks and steps}, numbers)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1783,7 +2014,7 @@ def auto_train_phase(torch, dev, card):
                          "auto", "--report-comm", "--compression", "int8_ef",
                          "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
                          "--steps", str(AUTO_STEPS), "--device", dev.type,
-                         "--log-every", "1"])
+                         "--log-every", "1"], pool=pool)
     run_s = time.perf_counter() - t0
     if report["strategy"] != decision.strategy or report["path"] != "sharded":
         fail(f"--strategy auto ran {report['strategy']} on path {report['path']}, "
@@ -1830,10 +2061,307 @@ def auto_train_phase(torch, dev, card):
     return dict(totals), numbers
 
 
+# Phase 23: sharded serving and the GSPMD train step over ranks sharing the
+# card. (a) ``launch.serve --strategy tp --devices 4``: full-width
+# qwen2.5-3b at mesh (2, 2), bf16, batch 4, prompt 32, gen 32 (16/2 q heads
+# and 2/2 kv heads live, the MLP split, each rank on its 2 rows) on the pool
+# of 4, fed phase 6's tokens in place of its own picks (teacher forcing), so
+# that every generated step, which writes and reads cache slots 32..63, is
+# held to phase 6's run on the same inputs: each step's fp32 logits within
+# TP_SERVE_TOL (absolute; 8 bf16 ulps at |logit| 4..8, where phase 7
+# measured 8.0e-2 between two orders of the same bf16 model), each picked
+# token's phase-6 logit within 2 TP_SERVE_TOL and a bf16 ulp of phase 6's
+# largest (what logits within TP_SERVE_TOL imply), and exactly 36 split_kv
+# flash launches a decode step a rank, nothing else launched. (b)
+# ``launch.serve.serve_rank`` on phase 15's pool of 8: qwen2.5-3b on
+# SERVE_FP32_LAYERS of its 36 layers in fp32 (weights and caches), fsdp_tp
+# at (2, 4): 2 kv heads do not divide 4, so attention is whole on each rank
+# and the MLP is split; its fp32 logits (before the bf16 cast) at every
+# generated step within SERVE_FP32_TOL (atol and rtol) of a single-device
+# fp32 run of the same cut config on the card, the tokens equal, flash on
+# the CUDA-core design only. (c) ``launch.train --devices 4 --mode gspmd
+# --strategy fsdp_tp``: full-width smollm-360m, batch 8 x seq 512, adamw +
+# int8_ef, GSPMD_STEPS steps on 4 ranks of the pool; each loss within
+# GSPMD_LOSS_TOL (absolute) of phase 8's loss at the same step (the same
+# config and lr schedule): tighter than phase 20's tier (1e-5 + |loss|/256,
+# ~0.043) and three times the largest gap of two sound runs (1.6e-3, chip
+# runs 1 and 3 of the slice that added this phase). AdamW after the clip
+# barely depends on the gradients' scale, so the losses alone would pass a
+# mean taken as a sum; each step's grad norm (before the clip) is held too,
+# within GSPMD_GNORM_RTOL (relative) of phase 8's: the sound runs' largest
+# gap is 2.7e-3, a sum over the 2 data ranks doubles it. Per rank and step
+# exactly 32 tile flash launches (its 4 rows) and one absmax, quantize and
+# dequantize launch per parameter tensor (290: the codec on the state's
+# slices, as phase 8 counts a single-device step).
+TP_SERVE_TOL = 0.25
+SERVE_FP32_LAYERS, SERVE_FP32_GEN, SERVE_FP32_TOL = 4, 8, 1e-4
+GSPMD_STEPS = TRAIN_STEPS_BY_ARCH[TRAIN_ARCH]
+GSPMD_LOSS_TOL, GSPMD_GNORM_RTOL = 5e-3, 2e-2
+
+
+def _rank_sums(ranks, key="launches"):
+    """Launch counts summed over the ranks (flash by design apart)."""
+    totals, designs = collections.Counter(), collections.Counter()
+    for r in ranks:
+        got = r[key]
+        totals.update({k: v for k, v in got.items() if isinstance(v, int)})
+        designs.update(got.get("flash_by_design", {}))
+    return dict(totals), dict(designs)
+
+
+def _serve_launch_gate(ranks, want_flash, design, what):
+    """Every rank launched ``want_flash`` flash calls, all of ``design``,
+    and nothing else."""
+    for r in ranks:
+        got = r["launches"]
+        counts = {k: v for k, v in got.items() if isinstance(v, int)}
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = want_flash
+        want_designs = {k: 0 for k in got["flash_by_design"]}
+        want_designs[design] = want_flash
+        if counts != want or got["flash_by_design"] != want_designs:
+            fail(f"{what}: rank {r['rank']} launched {got}, expected {want} with flash "
+                 f"by design {want_designs}")
+
+
+def sharded_serve_phase(torch, dev, card, pool):
+    """Phase 23 (a), on 4 ranks of the pool. Returns (launches summed over the
+    ranks, flash launches by design, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import probes
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import plan_remesh
+
+    full = get_config(ARCH)
+    n = SHARDED_LM_RANKS
+    mesh = plan_remesh(n).axes()
+    phase(f"sharded serving: launch.serve --strategy tp --devices {n} (mesh {mesh}), "
+          f"{ARCH} at full width, bf16, batch {BATCH}, prompt {PROMPT}, gen {GEN}, on "
+          f"{n} ranks of the pool")
+    pool.run(probes.release_memory, mesh=mesh)
+    t0 = time.perf_counter()
+    one_tokens, one_logits = SERVED[ARCH]
+    served = serve.main(["--arch", ARCH, "--strategy", "tp", "--devices", str(n),
+                         "--batch", str(BATCH), "--prompt-len", str(PROMPT), "--gen",
+                         str(GEN), "--device", dev.type], pool=pool, keep_logits=True,
+                        forced=one_tokens)
+    run_s = time.perf_counter() - t0
+    rep = served.report
+    if (rep["strategy"], rep["mesh"], rep["devices"]) != ("tp", [2, 2], n):
+        fail(f"sharded serve ran {rep['strategy']} on mesh {rep['mesh']} over "
+             f"{rep['devices']} devices")
+    want_pool = {"ranks": n, "backend": "gloo", "cards": 1}
+    if rep["pool"] != want_pool:
+        fail(f"sharded serve pool {rep['pool']}, expected {want_pool}")
+    ranks = rep["ranks"]
+    if [r["device"] for r in ranks] != [torch.cuda.get_device_name(0)] * n:
+        fail(f"sharded serve ranks ran on {[r['device'] for r in ranks]}")
+    steps = PROMPT + GEN
+    _serve_launch_gate(ranks, full.n_layers * steps, "split_kv", "sharded serve")
+    if len(served.step_logits) != GEN or len(one_logits) != GEN:
+        fail(f"sharded serve kept {len(served.step_logits)} steps' logits, phase 6 "
+             f"{len(one_logits)}, expected {GEN}")
+    errs = []
+    for t in range(GEN):
+        got, want = served.step_logits[t].float(), one_logits[t]
+        errs.append((got - want).abs().max().item())
+        if not errs[-1] <= TP_SERVE_TOL:
+            fail(f"sharded serve step {t}: fp32 logits differ from phase 6's by "
+                 f"{errs[-1]:.3e} > {TP_SERVE_TOL}")
+        top = want.max(dim=-1).values
+        picked = want.gather(-1, served.tokens[:, t:t + 1].long())[:, 0]
+        slack = 2 * TP_SERVE_TOL + (top.abs() + TP_SERVE_TOL) * 2.0 ** -7
+        if not bool((picked >= top - slack).all()):
+            fail(f"sharded serve step {t}: picked {served.tokens[:, t].tolist()}, whose "
+                 f"phase-6 logits {picked.tolist()} are below phase 6's largest "
+                 f"{top.tolist()} by more than {slack.tolist()}")
+    err = max(errs)
+    agree = (served.tokens == one_tokens).float().mean().item()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    peaks = [r["peak_mem_bytes"] or 0 for r in ranks]
+    if not sum(peaks) < card_bytes:
+        fail(f"sharded serve ranks' peak memory {sum(peaks)} is not under the card's")
+    numbers = {"prefill_s": rep["prefill_s"], "decode_s": rep["decode_s"],
+               "decode_tok_per_s": rep["decode_tok_per_s"],
+               "decode_ms_per_step": [round(r["decode_ms_per_step"], 3) for r in ranks],
+               "peak_mem_bytes": peaks,
+               "bytes": {k: ranks[0][k] for k in ("resident_param_bytes",
+                                                  "spec_param_bytes",
+                                                  "resident_cache_bytes",
+                                                  "spec_cache_bytes")},
+               "step_logits_max_abs_err": [round(e, 6) for e in errs],
+               "token_agreement": agree, "run_s": run_s}
+    print(f"  fed phase 6's tokens: fp32 logits vs phase 6's, max |d| a step "
+          f"{[f'{e:.3e}' for e in errs]} (max {err:.3e}, tol {TP_SERVE_TOL}) over all "
+          f"{GEN} steps; picks within 2 tol + a bf16 ulp of phase 6's best, equal to "
+          f"phase 6's tokens at {agree:.3f} of the steps; "
+          f"{full.n_layers} split_kv launches a step a rank, nothing else; prefill_s "
+          f"{rep['prefill_s']} decode_s {rep['decode_s']} decode_tok_per_s "
+          f"{rep['decode_tok_per_s']}; decode ms a step per rank "
+          f"{numbers['decode_ms_per_step']}; per-rank peak_mem_GB "
+          f"{[round(p / 1e9, 2) for p in peaks]}; bytes a rank holds vs the "
+          f"reference's specs {numbers['bytes']}; run {run_s:.1f} s; card {card}",
+          flush=True)
+    counts, designs = _rank_sums(ranks)
+    return counts, designs, numbers
+
+
+def serve_fp32_phase(torch, dev, card, pool):
+    """Phase 23 (b), on phase 15's pool of 8. Returns (launches summed over
+    the ranks, flash launches by design, numbers)."""
+    import argparse
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_for
+    from repro_torch.dist import probes
+    from repro_torch.launch import serve
+    from repro_torch.models import model as MD
+    from repro_torch.train import serve as TSV
+
+    mesh = {"data": 2, "model": 4}
+    full = get_config(ARCH)
+    cut = dataclasses.replace(full, n_layers=SERVE_FP32_LAYERS, dtype="float32",
+                              param_dtype="float32")
+    gen = SERVE_FP32_GEN
+    phase(f"sharded serving: serve_rank on phase 15's pool of 8, {ARCH} at full width "
+          f"({SERVE_FP32_LAYERS} of {full.n_layers} layers), fp32, fsdp_tp at mesh "
+          f"{mesh}, batch {BATCH}, prompt {PROMPT}, gen {gen}, vs one device")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = MD.init_model(cut, seed=0, device=dev)
+        prompt = make_batch_for(cut, BATCH, PROMPT)["tokens"].to(dev)
+        caches = MD.init_decode_caches(cut, BATCH, PROMPT + gen, dtype=torch.float32,
+                                       device=dev)
+        one = TSV.decode_loop(params, cut, caches, prompt, gen, keep_logits=True)
+        one_tokens = one.tokens.cpu()
+        one_logits = [x.cpu() for x in one.step_logits]
+        del params, caches, one
+    torch.cuda.empty_cache()
+    pool.run(probes.release_memory, mesh=mesh)
+    args = argparse.Namespace(batch=BATCH, prompt_len=PROMPT, gen=gen, seed=0,
+                              strategy="fsdp_tp")
+    ranks = pool.run(serve.serve_rank, cut, args, None, True, torch.float32, mesh=mesh)
+    tokens = torch.from_numpy(serve.assemble_rows(ranks, "tokens", BATCH))
+    if not torch.equal(tokens, one_tokens):
+        fail(f"fp32 sharded serve tokens {tokens.tolist()} differ from one device's "
+             f"{one_tokens.tolist()}")
+    err = 0.0
+    for i in range(gen):
+        got = torch.from_numpy(serve.assemble_rows(
+            [{**r, "lf": r["step_logits"][i]} for r in ranks], "lf", BATCH))
+        err = max(err, (got - one_logits[i]).abs().max().item())
+        if not torch.allclose(got, one_logits[i], atol=SERVE_FP32_TOL, rtol=SERVE_FP32_TOL):
+            fail(f"fp32 sharded serve step {i}: logits differ from one device's by "
+                 f"{(got - one_logits[i]).abs().max().item():.3e}")
+    _serve_launch_gate(ranks, SERVE_FP32_LAYERS * (PROMPT + gen), "cuda_core",
+                       "fp32 sharded serve")
+    run_s = time.perf_counter() - t0
+    numbers = {"max_abs_err": err, "decode_ms_per_step": [
+        round(r["decode_ms_per_step"], 3) for r in ranks],
+        "bytes": {k: ranks[0][k] for k in ("resident_param_bytes", "spec_param_bytes",
+                                           "resident_cache_bytes", "spec_cache_bytes")},
+        "run_s": run_s}
+    print(f"  fp32 logits at {gen} generated steps vs one device: max |d| {err:.3e} "
+          f"(atol = rtol = {SERVE_FP32_TOL}); tokens equal; {SERVE_FP32_LAYERS} cuda_core "
+          f"flash launches a step a rank, nothing else; decode ms a step per rank "
+          f"{numbers['decode_ms_per_step']}; bytes a rank holds vs the reference's specs "
+          f"{numbers['bytes']}; {run_s:.1f} s; card {card}", flush=True)
+    counts, designs = _rank_sums(ranks)
+    return counts, designs, numbers
+
+
+def gspmd_train_phase(torch, dev, card, pool):
+    """Phase 23 (c), on 4 ranks of the pool. Returns (launches summed over ranks
+    and steps, numbers)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import probes
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import plan_remesh
+    from repro_torch.models import model as MD
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_LM_RANKS
+    mesh = plan_remesh(n).axes()
+    phase(f"GSPMD train step: launch.train --devices {n} --mode gspmd --strategy "
+          f"{SHARDED_LM_STRATEGY} (mesh {mesh}), {TRAIN_ARCH} at full width, adamw + "
+          f"int8_ef, batch {B} x seq {S}, {GSPMD_STEPS} steps, on {n} ranks of the pool")
+    pool.run(probes.release_memory, mesh=mesh)
+    t0 = time.perf_counter()
+    report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--mode", "gspmd",
+                         "--strategy", SHARDED_LM_STRATEGY, "--compression", "int8_ef",
+                         "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
+                         "--steps", str(GSPMD_STEPS), "--device", dev.type,
+                         "--log-every", "1"], pool=pool)
+    run_s = time.perf_counter() - t0
+    if ((report["path"], report["path_reason"]) != ("gspmd", "requested")
+            or report["mesh"] != [mesh["data"], mesh["model"]]):
+        fail(f"gspmd train ran path {report['path']} ({report['path_reason']}) on mesh "
+             f"{report['mesh']}")
+    if [r["device"] for r in report["ranks"]] != [torch.cuda.get_device_name(0)] * n:
+        fail(f"gspmd train ranks ran on {[r['device'] for r in report['ranks']]}")
+    losses, gnorms = report["losses"], report["grad_norm"]
+    single, single_gnorms = (x[:GSPMD_STEPS] for x in TRAINED[TRAIN_ARCH])
+    if (len(losses) != GSPMD_STEPS or len(gnorms) != GSPMD_STEPS
+            or not all(np.isfinite(losses + gnorms))):
+        fail(f"gspmd train losses or grad norms not finite: {losses}, {gnorms}")
+    diffs = [abs(a - b) for a, b in zip(losses, single)]
+    if any(d > GSPMD_LOSS_TOL for d in diffs):
+        fail(f"gspmd train losses {losses} vs phase 8's {single}: |d| {diffs} past "
+             f"{GSPMD_LOSS_TOL}")
+    gdiffs = [abs(a - b) / b for a, b in zip(gnorms, single_gnorms)]
+    if any(d > GSPMD_GNORM_RTOL for d in gdiffs):
+        fail(f"gspmd train grad norms {gnorms} vs phase 8's {single_gnorms}: relative "
+             f"|d| {gdiffs} past {GSPMD_GNORM_RTOL}")
+    rows = B // mesh["data"]
+    designs, n_flash, _ = _train_work(MD, FA, full, rows, S, "none", torch.bfloat16, 1)
+    n_tensors = len(tree_leaves(MD.param_shapes(full)))
+    want = {"flash_attention": n_flash, "quantize_absmax": n_tensors,
+            "quantize_int8": n_tensors, "dequantize_int8": n_tensors, "ssd_scan": 0,
+            "flash_by_design": {v: designs.get(v, 0) for v in FA.VARIANTS}}
+    totals = collections.Counter()
+    for r in report["ranks"]:
+        for step, got in enumerate(r["launches_per_step"]):
+            if got != want:
+                fail(f"gspmd train rank {r['rank']} step {step} launched {got}, "
+                     f"expected {want}")
+            totals.update({k: v for k, v in got.items() if k != "flash_by_design"})
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    peaks = [r["peak_mem_bytes"] or 0 for r in report["ranks"]]
+    if not sum(peaks) < card_bytes:
+        fail(f"gspmd train ranks' peak memory {sum(peaks)} is not under the card's")
+    regions = {k: [round(r["regions_ms"][k], 3) for r in report["ranks"]]
+               for k in report["ranks"][0]["regions_ms"]}
+    transient = report["ranks"][0]["transient_bytes"]
+    numbers = {"losses": losses, "single_losses": single, "loss_diffs": diffs,
+               "grad_norms": gnorms, "single_grad_norms": single_gnorms,
+               "grad_norm_rel_diffs": gdiffs,
+               "step_ms": report["step_ms"], "tokens_per_s": report["tokens_per_s"],
+               "regions_ms": regions, "peak_mem_bytes": peaks,
+               "transient_bytes": transient, "launches_per_rank_step": want,
+               "run_s": run_s}
+    print(f"  losses {[round(x, 5) for x in losses]} vs phase 8's "
+          f"{[round(x, 5) for x in single]}: |d| {[f'{d:.3e}' for d in diffs]} (tol "
+          f"{GSPMD_LOSS_TOL}); grad norms {[round(x, 5) for x in gnorms]} vs phase 8's "
+          f"{[round(x, 5) for x in single_gnorms]}: relative |d| "
+          f"{[f'{d:.3e}' for d in gdiffs]} (tol {GSPMD_GNORM_RTOL}); launches per rank "
+          f"per step {want}; step_ms "
+          f"{report['step_ms']} tokens_per_s {report['tokens_per_s']}; per-rank region "
+          f"ms (median of steps 1..) {regions}; per-rank peak_mem_GB "
+          f"{[round(p / 1e9, 2) for p in peaks]} (sum {round(sum(peaks) / 1e9, 2)}); "
+          f"transient bytes a rank (beyond its state's slices) {transient}; run "
+          f"{run_s:.1f} s; card {card}", flush=True)
+    return dict(totals), numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    start_watchdog(WATCHDOG_S - (time.perf_counter() - T_START))
     src = os.path.join(REPO, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
@@ -1856,20 +2384,7 @@ def main() -> None:
     from repro_torch.tree import reference_leaves, tree_leaves
 
     dev = torch.device("cuda", 0)
-    counters = {"flash_attention": (FA, "LAUNCHES"),
-                "quantize_absmax": (Q, "ABSMAX_LAUNCHES"),
-                "quantize_int8": (Q, "QUANTIZE_LAUNCHES"),
-                "dequantize_int8": (Q, "DEQUANTIZE_LAUNCHES"),
-                "ssd_scan": (SSD, "LAUNCHES")}
-
-    def reset_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        FA.LAUNCHES_BY_VARIANT = dict.fromkeys(FA.VARIANTS, 0)
-        SSD.LAUNCHES_BY_VARIANT = dict.fromkeys(SSD.VARIANTS, 0)
-
-    def read_counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    counters, reset_counts, read_counts = launch_counters(FA, Q, SSD)
 
     def read_variants():
         return dict(FA.LAUNCHES_BY_VARIANT)
@@ -1908,8 +2423,11 @@ def main() -> None:
     t0 = time.perf_counter()
     sources = (FA.SOURCE, Q.SOURCE, *SSD.SOURCES)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-        libs = list(ex.map(nvcc.build, sources))
-    print(f"built in {time.perf_counter() - t0:.1f} s")
+        building = ex.map(nvcc.build, sources)
+        warm_s = warm_inductor(dev)         # inductor's set-up, beside nvcc
+        libs = list(building)
+    print(f"built in {time.perf_counter() - t0:.1f} s (inductor warmed beside it in "
+          f"{warm_s:.1f} s)")
     for lib in libs:
         print(f"  {os.path.relpath(lib, REPO)}")
         with open(lib + ".log") as f:
@@ -2511,12 +3029,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 12. full-width mamba2 training -------------------------------------
+    msteps = TRAIN_STEPS_BY_ARCH[SSM_ARCH]
     phase(f"train {SSM_ARCH} at full width (batch {TRAIN_BATCH}, seq "
-          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, adamw, int8_ef)")
+          f"{TRAIN_SEQ}, {msteps} steps, adamw, int8_ef)")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     mtrained = train.main(["--arch", SSM_ARCH, "--batch", str(TRAIN_BATCH),
-                           "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                           "--seq", str(TRAIN_SEQ), "--steps", str(msteps),
                            "--optimizer", "adamw", "--compression", "int8_ef",
                            "--remat", "none", "--device", "cuda", "--log-every", "1"])
     mtrain_counts = read_counts()
@@ -2529,9 +3048,9 @@ def main() -> None:
         seed=0, device="cpu"))
     m_tensors = sum(len(idx) for _, idx in mgroups)
     expected = {"flash_attention": 0,
-                **{k: TRAIN_STEPS * m_tensors for k in
+                **{k: msteps * m_tensors for k in
                    ("quantize_absmax", "quantize_int8", "dequantize_int8")},
-                "ssd_scan": TRAIN_STEPS * mfull.n_layers}
+                "ssd_scan": msteps * mfull.n_layers}
     losses = mtrained["losses"]
     print(f"  launches {mtrain_counts} (expected {expected}: {m_tensors} "
           f"parameter tensors in {len(mgroups)} reference leaves); "
@@ -2541,8 +3060,8 @@ def main() -> None:
     if mtrain_counts != expected:
         fail(f"{SSM_ARCH} train launched the kernels {mtrain_counts}, expected {expected}")
     gate_variants(f"{SSM_ARCH} train", mtrain_variants)
-    gate_ssd_variants(f"{SSM_ARCH} train", mtrain_ssd, mma=TRAIN_STEPS * mfull.n_layers)
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    gate_ssd_variants(f"{SSM_ARCH} train", mtrain_ssd, mma=msteps * mfull.n_layers)
+    if len(losses) != msteps or not all(np.isfinite(losses)):
         fail(f"{SSM_ARCH} train losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{SSM_ARCH} train loss did not fall: {losses}")
@@ -2560,17 +3079,18 @@ def main() -> None:
     what = (f"{SSM_ARCH} train step at full width, bf16, batch {TRAIN_BATCH} x seq "
             f"{TRAIN_SEQ}, adamw + int8_ef")
     # The step on the path's design (mma), then with the SSD forward sent to
-    # the CUDA-core kernel (``SSD.plan`` replaced for this comparison only),
-    # then on mma again: what the design is worth end to end on one card.
+    # the CUDA-core kernel (``SSD.plan`` replaced for this comparison only):
+    # what the design is worth end to end on one card.
     step_stats = collections.defaultdict(list)
-    for design in ("mma", "cuda_core", "mma"):
+    for design in ("mma", "cuda_core"):
         with contextlib.ExitStack() as stack:
             if design == "cuda_core":
                 stack.enter_context(unittest.mock.patch.object(
                     SSD, "plan", lambda x_shape, B_shape, dtype, chunk, *_, **__: SSD.Plan(
                         "cuda_core", SSD.smem_bytes(x_shape[3], B_shape[3], chunk))))
             step_stats[design].append(profile_steps(
-                torch, train_one, 2, f"{what}, SSD forward on {design}", card))
+                torch, train_one, PROFILE_TRAIN_STEPS, f"{what}, SSD forward on {design}",
+                card))
     print(f"  {SSM_ARCH} train step by SSD forward design (host wall, device busy "
           f"ms/step): {dict(step_stats)}; card {card}", flush=True)
     del holder, step_fn, batch
@@ -2984,26 +3504,12 @@ def main() -> None:
           f"{bwd_ms * mfull.n_layers:.1f} ms/step; card {card}", flush=True)
     del ins, y, go
 
-    # ---- 14. paper pipeline ----------------------------------------------------
-    phase("paper pipeline on the card: LeNet-5 sweep, generic-model fit by DE")
-    try:
-        paper_pipeline(torch, dev, card, reset_counts, read_counts)
-    finally:
-        from torch._inductor.async_compile import shutdown_compile_workers
-        shutdown_compile_workers()
-
     # ---- 22 (a). the plan CLI's dry run ------------------------------------------
     plan_blob = planner_plan_phase(dev, card)
 
-    # ---- 15. sharded pipeline; 22 (b). two picks measured on its pool -------------
-    phase("sharded pipeline on the card: a world of 8 ranks over gloo")
-    try:
-        sharded_counts, (plan_counts, plan_numbers) = sharded_pipeline(
-            torch, dev, card,
-            then=lambda pool: planner_measure_phase(torch, dev, card, pool))
-    finally:
-        from torch._inductor.async_compile import shutdown_compile_workers
-        shutdown_compile_workers()
+    # phase 15's pool starts now, its ranks' start-up beside phases 16-19
+    opening = OpeningPool(SHARDED_WORLD, dev)
+    paper = []              # phase 14's process, started after phase 15
 
     # ---- 16. gemma2-2b, 17. whisper-tiny ----------------------------------------
     def lm_paths(*results):
@@ -3034,11 +3540,32 @@ def main() -> None:
              lm_train(torch, dev, card, VLM_ARCH, env, f"{VLM_ARCH}_reduced_", REDUCED_LR,
                       "full", reduced_size=True))
 
-    # ---- 20. the sharded LM train step -----------------------------------------
-    # ---- 21. the arch sweep, on phase 20's pool ----------------------------------
-    sharded_lm_counts, (rq, rkv), sharded_lm_numbers, (arch_counts, arch_rows) = \
-        sharded_lm(torch, dev, card,
-                   then=lambda pool: arch_sweep_phase(torch, dev, card, pool, env))
+    # ---- 15. sharded pipeline; 22 (b). two picks measured on its pool; --------
+    # ---- 23 (b). fp32 sharded serving; 20. the sharded LM train step; 21. the --
+    # ---- arch sweep; 22 (c) the planner's pick; 23 (a, c) sharded serving and --
+    # ---- the GSPMD step: all on one pool of 8 ----------------------------------
+    phase("sharded pipeline on the card: a world of 8 ranks over gloo")
+    try:
+        sharded_counts, (_, (plan_counts, plan_numbers), (fp32_counts, fp32_designs,
+                                                          fp32_numbers), sharded_lm_out) = \
+            sharded_pipeline(torch, dev, card, opening, then=lambda pool: (
+                paper.append(PaperPipelineProcess()),
+                planner_measure_phase(torch, dev, card, pool),
+                serve_fp32_phase(torch, dev, card, pool),
+                sharded_lm(torch, dev, card, pool, then=lambda pool: (
+                    arch_sweep_phase(torch, dev, card, pool, env),
+                    auto_train_phase(torch, dev, card, pool),
+                    sharded_serve_phase(torch, dev, card, pool),
+                    gspmd_train_phase(torch, dev, card, pool)))))
+    finally:
+        from torch._inductor.async_compile import shutdown_compile_workers
+        shutdown_compile_workers()
+    phase("paper pipeline on the card: LeNet-5 sweep, generic-model fit by DE (phase "
+          "14, run in a process of its own beside phases 22 (b) to 23)")
+    paper[0].finish()
+    sharded_lm_counts, (rq, rkv), sharded_lm_numbers, later = sharded_lm_out
+    ((arch_counts, arch_rows), (auto_counts, auto_numbers),
+     (serve_counts, serve_designs, serve_numbers), (gspmd_counts, gspmd_numbers)) = later
     phase(f"flash attention at the sharded step's per-rank shape q {list(rq)}")
     q, k, v = inputs(*rq[:2], rkv[1], rq[2], rkv[2], rq[3], torch.bfloat16)
     q_pos, kv_pos = tail_pos(rq[1], rkv[1])
@@ -3071,11 +3598,12 @@ def main() -> None:
     print(f"  sharded step numbers: {json.dumps(sharded_lm_numbers)}", flush=True)
     del q, k, v, got, ref, mask, qt, kt, vt
 
-    # ---- 22 (c). launch.train --strategy auto --report-comm ---------------------
-    auto_counts, auto_numbers = auto_train_phase(torch, dev, card)
     planner_numbers = {"plan_top": plan_blob["top"][0], "measure": plan_numbers,
                        "auto_train": auto_numbers}
     print(f"  planner numbers: {json.dumps(planner_numbers)}", flush=True)
+    phase23 = {"sharded_serve": serve_numbers, "sharded_serve_fp32": fp32_numbers,
+               "gspmd_train": gspmd_numbers}
+    print(f"  phase 23 numbers: {json.dumps(phase23)}", flush=True)
 
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
@@ -3084,7 +3612,10 @@ def main() -> None:
              "sharded_lm_train": {k: sharded_lm_counts.get(k, 0) for k in counters},
              "arch_sweep": arch_counts,
              "planner_measure": {k: plan_counts.get(k, 0) for k in counters},
-             "auto_train": {k: auto_counts.get(k, 0) for k in counters}}
+             "auto_train": {k: auto_counts.get(k, 0) for k in counters},
+             "sharded_serve": {k: serve_counts.get(k, 0) for k in counters},
+             "sharded_serve_fp32": {k: fp32_counts.get(k, 0) for k in counters},
+             "gspmd_train": {k: gspmd_counts.get(k, 0) for k in counters}}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}
@@ -3098,7 +3629,9 @@ def main() -> None:
         "launches_by_path": by_path("flash_attention"),
         "launches_by_design": {**{k: lm_designs.pop(k) for k in ("serve", "train")},
                                "mamba2_serve": mserve_variants,
-                               "mamba2_train": mtrain_variants, **lm_designs},
+                               "mamba2_train": mtrain_variants, **lm_designs,
+                               "sharded_serve": serve_designs,
+                               "sharded_serve_fp32": fp32_designs},
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
@@ -3155,4 +3688,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        if sys.argv[1:] == ["--paper-pipeline"]:
+            paper_pipeline_main()
+        else:
+            main()
+    finally:
+        stop_children()

@@ -67,27 +67,30 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compress_leaf(gs: Sequence[torch.Tensor], mode: str,
-                  errs: Optional[Sequence[torch.Tensor]] = None
+                  errs: Optional[Sequence[torch.Tensor]] = None,
+                  group: Optional[ProcessGroup] = None
                   ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
     """``compress_decompress`` of one reference leaf held as the tensors
     ``gs`` (its layers), quantized on one shared scale. Returns
-    (decompressed, new_errs), both lists in ``gs``' order."""
+    (decompressed, new_errs), both lists in ``gs``' order. Over ``group``
+    the tensors are this rank's slices of a leaf spread over its ranks:
+    the max-abs is agreed with a MAX all-reduce, so every slice is
+    quantized on the whole leaf's scale (nothing else crosses ranks)."""
     if mode == "none":
         return list(gs), errs
     gfs = [g.float() for g in gs]
     if mode == "bf16":
         return [g.to(torch.bfloat16).float() for g in gfs], errs
+    if mode not in ("int8", "int8_ef"):
+        raise ValueError(f"unknown compression mode {mode!r}; "
+                         f"have {COMPRESSIONS}")
+    carried = (gfs if mode == "int8" or errs is None
+               else [g + e.float() for g, e in zip(gfs, errs)])
+    absmax = all_reduce(ops.absmax(*carried), "max", group)
+    ds = [ops.dequantize_int8(*ops.quantize_with(c, absmax)) for c in carried]
     if mode == "int8":
-        qs, s = ops.quantize_int8_shared(gfs)
-        return [ops.dequantize_int8(q, s) for q in qs], errs
-    if mode == "int8_ef":
-        carried = (gfs if errs is None
-                   else [g + e.float() for g, e in zip(gfs, errs)])
-        qs, s = ops.quantize_int8_shared(carried)
-        ds = [ops.dequantize_int8(q, s) for q in qs]
-        return ds, [c - d for c, d in zip(carried, ds)]
-    raise ValueError(f"unknown compression mode {mode!r}; "
-                     f"have {COMPRESSIONS}")
+        return ds, errs
+    return ds, [c - d for c, d in zip(carried, ds)]
 
 
 def compress_decompress(g: torch.Tensor, mode: str,
@@ -192,8 +195,11 @@ def init_error_feedback(params):
 
 
 @torch.no_grad()
-def compress_tree(grads, mode: str, ef=None):
+def compress_tree(grads, mode: str, ef=None,
+                  group: Optional[ProcessGroup] = None):
     """``compress_decompress`` per reference leaf -> (new_grads, ef).
+    ``group``: the tree holds this rank's slices of tensors spread over
+    the group's ranks (``compress_leaf``).
 
     ``ef`` (when present) is the ``init_error_feedback`` tree; the new
     residuals are written into its tensors, and it comes back. In "int8_ef"
@@ -210,7 +216,7 @@ def compress_tree(grads, mode: str, ef=None):
     new_g = list(g_leaves)
     for _, idx in reference_leaves(grads):
         errs = None if ef is None else [e_leaves[i] for i in idx]
-        ds, es = compress_leaf([g_leaves[i] for i in idx], mode, errs)
+        ds, es = compress_leaf([g_leaves[i] for i in idx], mode, errs, group)
         for j, i in enumerate(idx):
             new_g[i] = ds[j]
             if es is not None:

@@ -121,6 +121,10 @@ def _serve(rank: int, world: int, init_file: str, device: str,
     dist.init_process_group(BACKEND, init_method=f"file://{init_file}",
                             rank=rank, world_size=world, timeout=TIMEOUT)
     ctx = RankContext(rank, world, torch.device(device))
+    if ctx.device.type == "cuda":
+        # a job may read the card's memory statistics first thing, and those
+        # calls do not initialise CUDA when given an indexed device
+        torch.cuda.init()
     try:
         while True:
             box = [None]

@@ -236,3 +236,15 @@ def sharded_train_profile(ctx, cfg, tcfg, strategy, seed: int,
         end = max(end, t)
     return {"wall_ms": wall_ms, "busy_ms": busy / 1e3 if kernels else None,
             "kernels": len(kernels)}
+
+
+def release_memory(ctx) -> int:
+    """Return this rank's cached device memory to the driver (a pool that
+    hosts one job after another on a shared card); the bytes still
+    reserved."""
+    import gc
+    gc.collect()
+    if ctx.device.type != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(ctx.device)

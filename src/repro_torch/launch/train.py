@@ -6,6 +6,8 @@
       --devices 4 --strategy fsdp_tp --compression int8_ef --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
       --devices 4 --strategy auto --report-comm --compression int8_ef
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --devices 4 --mode gspmd --strategy fsdp_tp --compression int8_ef
 
 ``--devices N`` (default 1) sets the world: with N > 1 a ``dist.pool.Pool``
 of N ranks over gloo (under ``cuda`` every rank shares the card; under
@@ -16,10 +18,14 @@ model) mesh, whose size is N rounded down to a power of two: ``--devices
 eager-gather body; each rank builds its own state from the seed on its
 device and takes its rows of every batch), "gspmd" the reference's
 jit-with-shardings step, which on one device is the single-device step and
-with N > 1 is not ported (the run exits with the reference's reason);
-"auto" takes the sharded step whenever it can. The reference forces a pool
-of 8 placeholder host devices when none is asked for; the port's default
-is one card, the single-device step.
+over N > 1 ranks ``make_gspmd_train_step`` (each rank holds its slices of
+the state as ``launch.specs.state_shardings`` places them and takes the
+global batch, of which it computes its rows; ``train.serve`` sets out the
+design); "auto" takes the sharded step whenever it can, and every one of
+the reference's fallbacks (adafactor, a batch the batch axes do not
+divide, microbatches that do not divide a rank's rows) the GSPMD step. The
+reference forces a pool of 8 placeholder host devices when none is asked
+for; the port's default is one card, the single-device step.
 
 ``--strategy auto`` asks the planner (``perf.planner.choose_strategy``) to
 rank the registry's strategies by their calibrated collective cost, with
@@ -42,13 +48,16 @@ final_loss wall_s losses strategy mesh``) plus ``path`` and
 first, each timed on the host clock ending in a synchronise),
 ``tokens_per_s`` (batch × seq over that median), ``param_count`` and
 ``tree_params`` (the config's count and the weights' own, which differ for
-a hybrid), per step the MoE ``aux`` loss and, with an MTP head,
-``mtp_ce``, and ``planner`` (``--strategy auto``: the decision and every
+a hybrid), per step the MoE ``aux`` loss, the gradients' global norm
+before the clip (``grad_norm``, rank 0's of a sharded run) and, with an MTP
+head, ``mtp_ce``, and ``planner`` (``--strategy auto``: the decision and every
 candidate) and ``comm`` (``--report-comm``), the keys the ``--dry-run``
 JSON carries too; a sharded run adds ``pool`` (ranks, backend, cards) and
 ``ranks``, one entry per rank: its device, peak memory, the median ms of
 each region of its step (``gather_params``, ``grad_compute``,
-``grad_reduce``, ``update``) and its kernel launches per step.
+``grad_reduce``, ``update``) and its kernel launches per step; a GSPMD
+rank adds the bytes its step holds beyond its state's slices
+(``transient_bytes``).
 Checkpointing, fault tolerance and tracing are not ported yet.
 """
 from __future__ import annotations
@@ -86,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "collective cost + memory headroom")
     ap.add_argument("--mode", default="auto", choices=["auto", "sharded", "gspmd"],
                     help="sharded = the manual-collectives step over the pool; "
-                         "gspmd = the single-device step (one device only); "
-                         "auto prefers sharded")
+                         "gspmd = the reference's jit-with-shardings step (one "
+                         "device: the single-device step; over the pool: "
+                         "train.step.make_gspmd_train_step); auto prefers sharded")
     ap.add_argument("--devices", type=int, default=1,
                     help="ranks of the world (all on one card under cuda)")
     ap.add_argument("--remat", default="none", choices=["none", "full", "dots"])
@@ -158,10 +168,11 @@ def _configs(args):
     return cfg, tcfg
 
 
-def train_rank(ctx, cfg, tcfg, args):
-    """Pool job: one rank of a sharded run. Builds this rank's state from
-    the seed on its device, takes its rows of each step's global batch and
-    runs the legacy body, timing its regions; returns the rank's losses,
+def train_rank(ctx, cfg, tcfg, args, path: str = "sharded"):
+    """Pool job: one rank of a run over the pool. Builds this rank's state
+    from the seed on its device and runs the legacy body on its rows of
+    each step's global batch (``path`` "sharded"), or the GSPMD step on the
+    global batch ("gspmd"), timing its regions; returns the rank's losses,
     metrics, step times, region times, launches per step and peak memory
     (numbers only: no tensor leaves the rank)."""
     import torch
@@ -170,25 +181,31 @@ def train_rank(ctx, cfg, tcfg, args):
     from repro_torch.dist import probes
     from repro_torch.launch.serve import device_name, sync
     from repro_torch.launch.specs import batch_shardings
-    from repro_torch.train.step import (RegionTimer, init_sharded_train_state,
-                                        make_sharded_train_step)
+    from repro_torch.train import step as TS
     from repro_torch.tree import tree_size
 
     device, mesh = ctx.device, ctx.mesh
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state = init_sharded_train_state(cfg, tcfg, mesh, args.strategy,
-                                     seed=args.seed, device=device)
-    timer = RegionTimer(device)
-    step_fn = make_sharded_train_step(cfg, tcfg, mesh, args.strategy,
-                                      microbatches=args.microbatches, timer=timer)
+    timer = TS.RegionTimer(device)
+    if path == "gspmd":
+        state = TS.init_gspmd_train_state(cfg, tcfg, mesh, args.strategy,
+                                          seed=args.seed, device=device)
+        step_fn = TS.make_gspmd_train_step(cfg, tcfg, mesh, args.strategy,
+                                           microbatches=args.microbatches, timer=timer)
+        place = lambda b: b
+    else:
+        state = TS.init_sharded_train_state(cfg, tcfg, mesh, args.strategy,
+                                            seed=args.seed, device=device)
+        step_fn = TS.make_sharded_train_step(cfg, tcfg, mesh, args.strategy,
+                                             microbatches=args.microbatches, timer=timer)
+        place = lambda b: batch_shardings(b, mesh)
     out = {"rank": ctx.rank, "device": device_name(device),
            "tree_params_local": tree_size(state.params), "losses": [], "aux": [],
            "mtp_ce": [], "grad_norm": [], "step_s": [], "launches": []}
     for step in range(args.steps):
-        batch = {k: v.to(device) for k, v in batch_shardings(
-            make_batch_for(cfg, args.batch, args.seq, step=step, seed=args.seed),
-            mesh).items()}
+        batch = {k: v.to(device) for k, v in place(
+            make_batch_for(cfg, args.batch, args.seq, step=step, seed=args.seed)).items()}
         probes.reset_launches()
         sync(device)
         t0 = time.perf_counter()
@@ -209,16 +226,23 @@ def train_rank(ctx, cfg, tcfg, args):
     out["regions_ms"] = {k: v for k, v in timer.ms.items()}
     out["peak_mem_bytes"] = (torch.cuda.max_memory_allocated(device)
                              if device.type == "cuda" else None)
+    out["transient_bytes"] = getattr(step_fn, "transient_bytes", None)
+    del state, step_fn
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
-def _sharded_run(args, cfg, tcfg, device, mesh):
-    """The sharded run over a pool of the mesh's ranks: (losses, step
-    times, aux, mtp_ce, the report's extra keys)."""
+def _sharded_run(args, cfg, tcfg, device, mesh, path, pool=None):
+    """The run over a pool of (at least) the mesh's ranks, ``pool`` or a new
+    one: (losses, step times, aux, mtp_ce, the report's extra keys)."""
+    import contextlib
+
     from repro_torch.dist.pool import Pool
     from repro_torch.dist.sharding import mesh_size
-    with Pool(world=mesh_size(mesh), device=device) as pool:
-        ranks = pool.run(train_rank, cfg, tcfg, args, mesh=mesh)
+    with (contextlib.nullcontext(pool) if pool is not None
+          else Pool(world=mesh_size(mesh), device=device)) as pool:
+        ranks = pool.run(train_rank, cfg, tcfg, args, path, mesh=mesh)
         backend = pool.backend
     r0 = ranks[0]
     per_rank = [{"rank": r["rank"], "device": r["device"],
@@ -226,15 +250,21 @@ def _sharded_run(args, cfg, tcfg, device, mesh):
                  "regions_ms": {k: statistics.median(v[1:] or v)
                                 for k, v in r["regions_ms"].items()},
                  "launches_per_step": r["launches"],
-                 "step_ms": [round(t * 1e3, 3) for t in r["step_s"]]}
+                 "step_ms": [round(t * 1e3, 3) for t in r["step_s"]],
+                 **({"transient_bytes": r["transient_bytes"]}
+                    if r["transient_bytes"] is not None else {})}
                 for r in ranks]
-    extra = {"pool": {"ranks": pool.world, "backend": backend,
+    extra = {"grad_norm": r0["grad_norm"],
+             "pool": {"ranks": mesh_size(mesh), "backend": backend,
                       "cards": 1 if device.type == "cuda" else 0},
              "ranks": per_rank}
     return r0["losses"], r0["step_s"], r0["aux"], r0["mtp_ce"], extra
 
 
-def main(argv=None):
+def main(argv=None, pool=None):
+    """Train; returns the report. ``pool``, when given, is the open ``Pool``
+    a run over N > 1 ranks uses (its world holds the mesh), else one of the
+    mesh's ranks is opened."""
     args = build_parser().parse_args(argv)
 
     from repro_torch import resolve_device
@@ -273,9 +303,6 @@ def main(argv=None):
               f"ms/step over {comm['mesh_axes']}", flush=True)
     if decision is not None:
         planned["planner"] = decision.to_dict()
-    if path == "gspmd" and n_dev > 1:
-        raise SystemExit(f"path gspmd ({path_reason}) over {n_dev} devices: "
-                         "gspmd not ported (the port runs it on one device only)")
     if args.dry_run:
         out = {"dry_run": True, "arch": cfg.name, "device": str(device),
                "devices": n_dev, "mesh": list(plan.mesh_shape),
@@ -288,9 +315,9 @@ def main(argv=None):
 
     t_run = time.time()
     extra = {}
-    if path == "sharded":
+    if n_dev > 1:
         losses, step_times, aux, mtp_ce, extra = _sharded_run(
-            args, cfg, tcfg, device, mesh)
+            args, cfg, tcfg, device, mesh, path, pool)
         from repro_torch.models.model import param_shapes
         n_tree = tree_size(param_shapes(cfg))
     else:
@@ -298,6 +325,7 @@ def main(argv=None):
         n_tree = tree_size(state.params)
         step_fn = make_train_step(cfg, tcfg, microbatches=args.microbatches)
         losses, step_times, aux, mtp_ce = [], [], [], []
+        extra["grad_norm"] = []
         for step in range(args.steps):
             batch = {k: v.to(device) for k, v in
                      make_batch_for(cfg, args.batch, args.seq, step=step,
@@ -310,11 +338,12 @@ def main(argv=None):
             step_times.append(dt)
             losses.append(float(metrics["loss"]))
             aux.append(float(metrics["aux"]))
+            extra["grad_norm"].append(float(metrics["grad_norm"]))
             if "mtp_ce" in metrics:
                 mtp_ce.append(float(metrics["mtp_ce"]))
             if step % args.log_every == 0:
                 print(f"step {step:5d} loss {losses[-1]:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"gnorm {extra['grad_norm'][-1]:.3f} "
                       f"lr {metrics['lr']:.2e} {dt * 1e3:.0f}ms", flush=True)
 
     steady = step_times[1:] or step_times

@@ -174,7 +174,8 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     * decode: the new latent, rope key and positions are written in place
       at slot ``cache_pos % cap``; scores and values live in latent space
       (W_uk absorbed into q, W_uv applied after), fp32 products.
-    ``axes`` (training only) may keep the heads local (``mla_qkv``)."""
+    ``axes`` may keep the heads local (``mla_qkv``), wo's row split closed
+    by ``dense``; the latent and rope caches stay whole."""
     m = cfg.mla
     B, S, _ = x.shape
     H = mla_local_heads(cfg, axes)
@@ -209,5 +210,6 @@ def mla_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     o_lat = torch.einsum("bhst,btr->bshr", p, lat)
     wv_b = params["wv_b"]["weight"].view(H, m.v_head_dim, m.kv_lora_rank)
     o = torch.einsum("bshr,hvr->bshv", o_lat, wv_b.float())
-    y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim).to(x.dtype))
+    y = dense(params["wo"], o.reshape(B, S, H * m.v_head_dim).to(x.dtype),
+              marks(axes, "wo"))
     return y, (c_lat, c_rope, cpos)

@@ -493,9 +493,10 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
     inner, ...], shared attention [groups, ...])) as the reference's scan
     does, and otherwise the caches are None. ``enc_kv``
     (``stacked_cross_kv``) feeds the ``dec_attn`` layers' cross-attention.
-    ``remat`` applies to the training forward (no caches). ``axes`` is the
-    overlap train step's marker tree: each layer's StreamDim tensors are
-    gathered inside its (remat) body."""
+    ``remat`` applies to the training forward (no caches). ``axes`` is a
+    sharded program's marker tree: in training each layer's StreamDim
+    tensors are gathered inside its (remat) body; with caches (the sharded
+    server) it carries ``LocalDim`` entries only."""
     train = caches is None and not keep_cache
     new_caches, auxs = [], []
     for i, seg in enumerate(build_segments(cfg)):
@@ -529,7 +530,7 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
             h, nc, a = apply_block(blk, h, cfg, seg.kind, positions=positions,
                                    cache=c, cache_pos=cache_pos,
                                    window=seg.window, causal=seg.causal,
-                                   enc_kv=ekv)
+                                   enc_kv=ekv, axes=marks(axes, "segments", i, j))
             auxs.append(a)
             layer_caches.append(nc)
         if c_seg is not None:
@@ -543,16 +544,22 @@ def hidden_forward(params, cfg: ModelConfig, h, *, positions, caches=None,
     return h, new_caches, torch.stack(auxs).sum() if auxs else None
 
 
-def logits_fn(params, cfg: ModelConfig, h):
-    """bf16 logits [..., vocab], as the reference returns them: the product
-    in fp32, then the final softcap, then the cast."""
+def logits_f32(params, cfg: ModelConfig, h):
+    """fp32 logits [..., vocab] before ``logits_fn``'s bf16 cast: the product
+    in fp32, then the final softcap."""
     if cfg.tie_embeddings or "lm_head" not in params:
         logits = unembed(params["embed"], h)
     else:
         logits = unembed({"table": params["lm_head"]["weight"]}, h)
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
-    return logits.to(torch.bfloat16)
+    return logits
+
+
+def logits_fn(params, cfg: ModelConfig, h):
+    """bf16 logits [..., vocab], as the reference returns them: the product
+    in fp32, then the final softcap, then the cast."""
+    return logits_f32(params, cfg, h).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -672,66 +679,99 @@ def prefill(params, cfg: ModelConfig, batch, *,
     return logits_fn(params, cfg, h[:, -1:])[:, 0], caches
 
 
+def decode_hidden(params, cfg: ModelConfig, caches, token, pos: int, *,
+                  enc_kv: Optional[CrossKV] = None, axes=None) -> torch.Tensor:
+    """One decode step's final hidden state [B, D], the caches updated in
+    place; ``axes`` the sharded server's ``LocalDim`` markers."""
+    h = embed_tokens(params, cfg, token)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
+    h, _, _ = hidden_forward(params, cfg, h, positions=positions, caches=caches,
+                             cache_pos=pos, enc_kv=enc_kv, axes=axes)
+    return h[:, 0]
+
+
 def decode_step(params, cfg: ModelConfig, caches, token, pos: int, *,
                 enc_kv: Optional[CrossKV] = None):
     """One decode step. token [B,1]; pos the absolute position (int);
     ``enc_kv`` an encoder-decoder's cross K/V. Returns (logits [B,V],
     caches), the caches updated in place."""
-    h = embed_tokens(params, cfg, token)
-    positions = torch.full((1,), pos, dtype=torch.int32, device=h.device)
-    h, new_caches, _ = hidden_forward(params, cfg, h, positions=positions,
-                                      caches=caches, cache_pos=pos,
-                                      enc_kv=enc_kv)
-    return logits_fn(params, cfg, h)[:, 0], new_caches
+    h = decode_hidden(params, cfg, caches, token, pos, enc_kv=enc_kv)
+    return logits_fn(params, cfg, h), caches
 
 
 # ---------------------------------------------------------------------------
 # Decode-cache construction
 # ---------------------------------------------------------------------------
+# Every cache leaf is made by ``mk(shape, dtype, role)``; the roles are the
+# reference's: "kv" (k or v [..., B, cap, Hkv, hd]), "pos" ([..., cap]),
+# "lat" and "rope" (MLA's latent and rope key [..., B, cap, r]), "conv"
+# ([..., B, K-1, conv_dim]) and "ssd" ([..., B, H, P, N], fp32).
+# ``launch.specs.cache_specs`` passes a constructor of spec tuples, and the
+# sharded server one of its ranks' slices.
 
-def _attn_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
-                device) -> Tuple[torch.Tensor, ...]:
+def zeros_leaf(shape, dtype, role, device="cpu") -> torch.Tensor:
+    """A zeroed cache leaf; a "pos" leaf holds EMPTY_POS (every slot free)."""
+    if role == "pos":
+        return torch.full(shape, EMPTY_POS, dtype=torch.int32, device=device)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _attn_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype, mk) -> Tuple:
     shp = (n, B, cap, cfg.n_kv_heads, cfg.get_head_dim())
-    return (torch.zeros(shp, dtype=dtype, device=device),
-            torch.zeros(shp, dtype=dtype, device=device),
-            torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
+    return (mk(shp, dtype, "kv"), mk(shp, dtype, "kv"),
+            mk((n, cap), torch.int32, "pos"))
 
 
-def _mla_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype,
-               device) -> Tuple[torch.Tensor, ...]:
+def _mla_cache(cfg: ModelConfig, B: int, cap: int, n: int, dtype, mk) -> Tuple:
     m = cfg.mla
-    return (torch.zeros((n, B, cap, m.kv_lora_rank), dtype=dtype, device=device),
-            torch.zeros((n, B, cap, m.qk_rope_head_dim), dtype=dtype, device=device),
-            torch.full((n, cap), EMPTY_POS, dtype=torch.int32, device=device))
+    return (mk((n, B, cap, m.kv_lora_rank), dtype, "lat"),
+            mk((n, B, cap, m.qk_rope_head_dim), dtype, "rope"),
+            mk((n, cap), torch.int32, "pos"))
 
 
-def _ssm_cache(cfg: ModelConfig, B: int, lead: Tuple[int, ...], dtype,
-               device) -> Tuple[torch.Tensor, ...]:
+def _ssm_cache(cfg: ModelConfig, B: int, lead: Tuple[int, ...], dtype, mk) -> Tuple:
     """(conv state in the cache dtype, SSD state in fp32), as the reference's,
     stacked on the ``lead`` axes."""
     s, _, nh, conv_dim = S._dims(cfg)
-    return (torch.zeros(lead + (B, s.d_conv - 1, conv_dim), dtype=dtype, device=device),
-            torch.zeros(lead + (B, nh, s.head_dim, s.d_state), dtype=torch.float32,
-                        device=device))
+    return (mk(lead + (B, s.d_conv - 1, conv_dim), dtype, "conv"),
+            mk(lead + (B, nh, s.head_dim, s.d_state), torch.float32, "ssd"))
+
+
+def build_decode_caches(cfg: ModelConfig, B: int, seq_cap: int,
+                        dtype=torch.bfloat16, mk=None, device="cuda") -> Caches:
+    """The cache list ``hidden_forward`` takes, leaf by leaf from ``mk(shape,
+    dtype, role)`` (zeroed tensors on ``device`` by default), in the
+    reference's order and shapes (``repro.models.model.build_decode_caches``):
+    per segment the Mamba2 pair, the ring cache (a window caps it), MLA's
+    latent cache, an ``lg_pair``'s (local ring, global cache), a zamba
+    group's (Mamba2 pair stacked ``[groups, inner, ...]``, shared block's
+    attention cache)."""
+    if mk is None:
+        dev = resolve_device(device)
+        mk = lambda shape, dt, role: zeros_leaf(shape, dt, role, dev)
+    caches = []
+    for seg in build_segments(cfg):
+        cap = min(seq_cap, seg.window) if seg.window else seq_cap
+        if seg.kind == "ssm":
+            caches.append(_ssm_cache(cfg, B, (seg.n,), dtype, mk))
+        elif seg.kind in ("attn_mlp", "dec_attn"):
+            caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, mk))
+        elif seg.kind == "attn_moe":                  # no window, as the reference
+            caches.append(_attn_cache(cfg, B, seq_cap, seg.n, dtype, mk))
+        elif seg.kind in ("mla_mlp", "mla_moe"):
+            caches.append(_mla_cache(cfg, B, seq_cap, seg.n, dtype, mk))
+        elif seg.kind == "lg_pair":                   # (local ring, global cache)
+            caches.append((_attn_cache(cfg, B, cap, seg.n, dtype, mk),
+                           _attn_cache(cfg, B, seq_cap, seg.n, dtype, mk)))
+        elif seg.kind == "zamba_group":    # (inner Mamba2 pair, shared attention)
+            caches.append((_ssm_cache(cfg, B, (seg.n, seg.inner), dtype, mk),
+                           _attn_cache(cfg, B, cap, seg.n, dtype, mk)))
+        else:
+            raise ValueError(seg.kind)
+    return caches
 
 
 def init_decode_caches(cfg: ModelConfig, B: int, seq_cap: int,
                        dtype=torch.bfloat16, device="cuda") -> Caches:
     """Zeroed caches matching hidden_forward's cache list."""
-    dev = resolve_device(device)
-    caches = []
-    for seg in build_segments(cfg):
-        cap = min(seq_cap, seg.window) if seg.window else seq_cap
-        if seg.kind == "ssm":
-            caches.append(_ssm_cache(cfg, B, (seg.n,), dtype, dev))
-        elif seg.kind == "zamba_group":    # (inner Mamba2 pair, shared attention)
-            caches.append((_ssm_cache(cfg, B, (seg.n, seg.inner), dtype, dev),
-                           _attn_cache(cfg, B, cap, seg.n, dtype, dev)))
-        elif seg.kind in ("mla_mlp", "mla_moe"):
-            caches.append(_mla_cache(cfg, B, seq_cap, seg.n, dtype, dev))
-        elif seg.kind == "lg_pair":        # (local ring, global cache)
-            caches.append((_attn_cache(cfg, B, cap, seg.n, dtype, dev),
-                           _attn_cache(cfg, B, seq_cap, seg.n, dtype, dev)))
-        else:
-            caches.append(_attn_cache(cfg, B, cap, seg.n, dtype, dev))
-    return caches
+    return build_decode_caches(cfg, B, seq_cap, dtype, device=device)

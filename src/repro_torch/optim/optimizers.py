@@ -35,16 +35,29 @@ def _state_dtype(tcfg: TrainConfig) -> torch.dtype:
     return getattr(torch, tcfg.opt_state_dtype)
 
 
-def tree_global_norm(tree) -> torch.Tensor:
-    """0-d fp32 tensor on the leaves' device."""
-    sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sums).sum())
+def tree_global_norm(tree, group=None, copies=None) -> torch.Tensor:
+    """0-d fp32 tensor on the leaves' device. Over ``group`` (a process
+    group) the leaves are this rank's slices of a tree spread over its
+    ranks: each slice's sum of squares is divided by ``copies``' leaf (a
+    tree of floats like ``tree``: the ranks that hold that slice) and the
+    sums are summed over the group."""
+    if copies is None:
+        sums = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    else:
+        sums = tree_leaves(tree_map(lambda x, r: torch.sum(torch.square(x.float())) / r,
+                                    tree, copies))
+    total = torch.stack(sums).sum()
+    if group is not None:
+        from repro_torch.dist.sharding import all_reduce
+        total = all_reduce(total, "sum", group)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, group=None, copies=None):
     """Scale the tree to a global norm of at most ``max_norm``; each grad
-    comes back in its own dtype. Returns (grads, norm)."""
-    norm = tree_global_norm(grads)
+    comes back in its own dtype. Returns (grads, norm). ``group`` and
+    ``copies``: the tree is this rank's slices (``tree_global_norm``)."""
+    norm = tree_global_norm(grads, group, copies)
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm

@@ -1,10 +1,19 @@
 """Train step: loss → (micro-batched) grads → compression → clip → update
 (``repro.train.step``).
 
-Two paths share the same TrainState and numerics:
+Three paths share the same TrainState and numerics:
 
 * ``make_train_step`` — one device; the reference's GSPMD step on a mesh of
   one.
+* ``make_gspmd_train_step`` — the reference's GSPMD step (jit with
+  ``state_shardings``) over a ``Mesh`` of ranks: each rank holds its slice
+  of the state as ``launch.specs.state_shardings`` places it, computes on
+  its rows of the batch (``LocalDim`` where ``tp_live_axes`` allows, every
+  other sharded dim gathered), means the gradients over the batch axes in
+  fp32 (GSPMD's psum: no codec on the wire) and runs the single-device
+  update with each reduction over a whole tensor made an explicit
+  collective (``train.serve`` sets out the design, which the sharded
+  server shares).
 * ``make_sharded_train_step`` — the manual-collectives step, the
   counterpart of the reference's ``shard_map``: every rank of a ``Mesh``
   (``dist.sharding``, a world of ``dist.pool`` ranks) runs the body on its
@@ -50,7 +59,7 @@ import dataclasses
 import time
 from collections import defaultdict
 from contextlib import contextmanager, nullcontext
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -59,10 +68,11 @@ from repro_torch.dist.compression import (compress_tree,
                                           compressed_psum_mean_ef_leaf,
                                           compressed_psum_mean_leaf,
                                           init_error_feedback)
-from repro_torch.dist.sharding import (BATCH_AXES, Mesh, all_reduce, axis_sizes,
-                                       gather_to_full, manual_mode,
-                                       param_pspecs, resolve_strategy,
-                                       shard_of_full, spec_entries)
+from repro_torch.dist.sharding import (BATCH_AXES, Mesh, _trim, all_reduce,
+                                       axis_sizes, batch_pspec, gather_to_full,
+                                       manual_mode, param_pspecs,
+                                       resolve_strategy, shard_of_full,
+                                       spec_entries)
 from repro_torch.models import model as MD
 from repro_torch.models.layers import LocalDim, StreamDim
 from repro_torch.optim import clip_by_global_norm, make_optimizer, warmup_cosine
@@ -337,14 +347,18 @@ def _streamable_tree(cfg: ModelConfig, params):
     return flags
 
 
-def _overlap_plans(cfg: ModelConfig, tcfg: TrainConfig, mesh, p_specs, shapes):
+def _overlap_plans(cfg: ModelConfig, tcfg: TrainConfig, mesh, p_specs, shapes,
+                   stream: bool = True):
     """Classify every sharded dim of every tensor, in priority order:
     partitioned (``LocalDim``: model-sharded and ``tp_live_axes`` says the
     layer computes on the slice; the MoE router's expert dim, its output,
     stays whole), streamed (``StreamDim``: any other sharded dim of a
     segment layer, gathered inside the layer) or eager (the legacy whole
     gather: embedding, final norm, lm_head, mtp, zamba groups, an
-    encoder-decoder)."""
+    encoder-decoder). ``stream=False`` (the GSPMD step, the sharded server)
+    streams nothing: every dim that is not ``LocalDim`` is eager, and the
+    codec check of the overlap body (``tcfg``, which may then be None) is
+    not made."""
     sizes = axis_sizes(mesh)
     n_total = 1
     for v in sizes.values():
@@ -376,7 +390,7 @@ def _overlap_plans(cfg: ModelConfig, tcfg: TrainConfig, mesh, p_specs, shapes):
             else:
                 axes.append(logical)
                 gather.append(entry)
-        if (tcfg.grad_compression == "int8_ef" and not streamed
+        if (stream and tcfg.grad_compression == "int8_ef" and not streamed
                 and any(isinstance(a, LocalDim) for a in axes)):
             # the reference's residual is whole-leaf and cannot take a slice
             raise NotImplementedError(
@@ -384,8 +398,15 @@ def _overlap_plans(cfg: ModelConfig, tcfg: TrainConfig, mesh, p_specs, shapes):
         return _LeafPlan(tuple(axes), tuple(gather), streamed,
                          float(n_total // shard))
 
-    return tree_map(one, shapes, MD.param_axes(shapes), p_specs,
-                    _streamable_tree(cfg, shapes))
+    flags = (_streamable_tree(cfg, shapes) if stream
+             else tree_map(lambda p: False, shapes))
+    return tree_map(one, shapes, MD.param_axes(shapes), p_specs, flags)
+
+
+def local_spec(plan: _LeafPlan) -> Tuple:
+    """The spec of a plan's ``LocalDim`` dims only: the slice a layer
+    computes on."""
+    return _trim(a.axis if isinstance(a, LocalDim) else None for a in plan.axes)
 
 
 def overlap_transient_bytes(cfg: ModelConfig, tcfg: TrainConfig, mesh,
@@ -692,3 +713,217 @@ def _compiled_overlap_body(cfg, tcfg, mesh, mode, plans, plan_axes,
                 metrics)
 
     return body
+
+
+# ---------------------------------------------------------------------------
+# The GSPMD step over a mesh of ranks
+# ---------------------------------------------------------------------------
+
+def gspmd_state_specs(cfg: ModelConfig, tcfg: TrainConfig, mesh, strategy,
+                      shapes=None) -> TrainState:
+    """``launch.specs.state_shardings`` of ``init_train_state``'s state,
+    from shapes (nothing allocated). ``shapes``: a tree of the parameters'
+    whole shapes in the state's own order (adafactor keeps one moment per
+    reference leaf in that order; a converted reference tree's keys are
+    sorted, the port's init order is not), by default ``MD.param_shapes``."""
+    from repro_torch.launch.specs import state_shardings
+    if shapes is None:
+        shapes = MD.param_shapes(cfg)
+    opt = tcfg.optimizer
+    skeleton = TrainState(shapes, OptState(0, None if opt == "adafactor" else shapes,
+                                           {"adamw": shapes, "adafactor": []}.get(opt)),
+                          shapes if tcfg.grad_compression == "int8_ef" else None)
+    return state_shardings(skeleton, mesh, strategy)
+
+
+def _slices(tree, specs, mesh):
+    """Owned copies of this rank's slices of a whole ``tree``'s tensors."""
+    if tree is None:
+        return None
+    return tree_map(lambda x, s: shard_of_full(x, s, mesh).clone(), tree, specs)
+
+
+def init_gspmd_train_state(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
+                           strategy, *, seed: int = 0, device="cuda",
+                           params=None) -> TrainState:
+    """This rank's slices of ``init_train_state``'s state (or of one made
+    from the whole ``params``), placed by ``gspmd_state_specs``."""
+    if params is None:
+        whole = init_train_state(cfg, tcfg, seed=seed, device=device)
+    else:
+        opt_init, _ = make_optimizer(tcfg.optimizer)
+        whole = TrainState(params, opt_init(params, tcfg),
+                           init_error_feedback(params)
+                           if tcfg.grad_compression == "int8_ef" else None)
+    specs = gspmd_state_specs(cfg, tcfg, mesh, strategy, shapes=whole.params)
+    return TrainState(_slices(whole.params, specs.params, mesh),
+                      OptState(0, _slices(whole.opt.mu, specs.opt.mu, mesh),
+                               _slices(whole.opt.nu, specs.opt.nu, mesh)),
+                      _slices(whole.ef, specs.ef, mesh))
+
+
+def gspmd_rows_split(cfg: ModelConfig, mesh, rows: int) -> bool:
+    """Whether a GSPMD program computes on its rows of a batch of ``rows``:
+    the batch axes divide it (``batch_pspec``), and the model has no MoE,
+    whose capacity is a function of the tokens routed together, and no MTP
+    head, whose loss is a mean over labels of its own count."""
+    return (batch_pspec(mesh, 1, rows)[0] is not None and cfg.moe is None
+            and not cfg.mtp_depth)
+
+
+def _leaf_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def make_gspmd_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh,
+                          strategy="fsdp_tp", microbatches: int = 1, timer=None):
+    """The reference's GSPMD step over the ranks of ``mesh``:
+    ``step(state, batch)`` on each rank with this rank's state
+    (``init_gspmd_train_state``) and the GLOBAL batch; returns (state,
+    metrics), the state updated in place. ``step.transient_bytes`` gives
+    the per-rank bytes the step holds beyond the state's slices.
+
+    Per step, on each rank:
+
+      1. gather the parameters' sharded dims but the ``LocalDim`` ones
+         (``_overlap_plans`` without streaming);
+      2. the gradients of the rank's rows of each microbatch (the global
+         batch is cut into microbatches first, then each into rows, as
+         GSPMD shards each microbatch), the layers on their slices. The
+         rank's loss is scaled by its share of the microbatch's labels
+         times the batch ranks, so that the mean over the ranks is the one
+         mean over every label of the microbatch that the reference's
+         program takes, also where the ranks' rows hold unequal counts
+         (``MASK_ID`` labels);
+      3. their fp32 mean over the batch axes (GSPMD's psum; no codec on the
+         wire), cast back to the single-device step's dtypes, and the
+         loss's and metrics' means (the token count summed): when the
+         batch axes do not divide a microbatch, or the model has an MoE or
+         an MTP head, every rank computes every row and nothing is
+         reduced;
+      4. ``make_train_step``'s update: ``compress_tree`` with its residual,
+         the clip, the optimizer. An elementwise optimizer (adamw, sgd)
+         runs it on the state's slices, with the update's two reductions
+         over a whole tensor made collectives over the mesh: the codec's
+         max-abs per reference leaf (``compress_tree``'s ``group``) and the
+         clip's sum of squares, each slice's divided by the ranks that
+         hold it. Adafactor's factored statistics span whole leaves, so
+         its update gathers the reduced gradients and every state leaf
+         whole, runs there, and keeps its slices."""
+    from repro_torch.perf.planner.space import shard_divisor
+    batch_axes = _mesh_batch_axes(mesh)
+    batch_group = mesh.group(batch_axes) if batch_axes else None
+    n_batch = n_batch_shards(mesh)
+    whole_group = mesh.group(mesh.axis_names)
+    sizes = axis_sizes(mesh)
+    _, opt_update = make_optimizer(tcfg.optimizer)
+    forward = _forward(cfg, tcfg)
+    wire = tcfg.grad_compression
+    shapes = MD.param_shapes(cfg)
+    specs = gspmd_state_specs(cfg, tcfg, mesh, strategy, shapes)
+    plans = _overlap_plans(cfg, None, mesh, specs.params, shapes, stream=False)
+    axes = tree_map(lambda p, pl: pl.axes, shapes, plans)
+    local = tree_map(lambda p, pl: local_spec(pl), shapes, plans)
+    # ranks holding each element of a state slice
+    copies = tree_map(lambda p, s: float(mesh.size // shard_divisor(s, sizes)), shapes,
+                      specs.params)
+    elementwise = tcfg.optimizer in ("adamw", "sgd")
+    region = timer if timer is not None else (lambda name: nullcontext())
+
+    def total(fn, tree):
+        return sum(tree_leaves(tree_map(fn, shapes, tree)))
+
+    compute_numel = total(lambda p, ls: p.numel() // shard_divisor(ls, sizes), local)
+    compute_bytes = total(lambda p, ls: p.numel() * p.element_size()
+                          // shard_divisor(ls, sizes), local)
+    slice_bytes = total(lambda p, s: p.numel() * p.element_size()
+                        // shard_divisor(s, sizes), specs.params)
+    full_numel = sum(p.numel() for p in tree_leaves(shapes))
+    whole_update = 0 if elementwise else (
+        _leaf_bytes(shapes) + 4 * full_numel * (1 + (wire == "int8_ef")))
+
+    def label_weighted(params, batch, axes=None):
+        loss, metrics = forward(params, batch, axes)
+        n = metrics["tokens"].detach().float()
+        w = n * n_batch / torch.clamp(all_reduce(n, "sum", batch_group), min=1)
+        return loss * w, {k: v if k == "tokens" else v * w for k, v in metrics.items()}
+
+    grad_split, grad_whole = _grad_fn(cfg, tcfg, label_weighted), _grad_fn(cfg, tcfg)
+
+    def rank_rows(batch):
+        """(this rank's rows of every microbatch, in microbatch order,
+        whether they are a split)."""
+        B = next(iter(batch.values())).shape[0]
+        mb_rows = B // microbatches
+        if not gspmd_rows_split(cfg, mesh, mb_rows):
+            return batch, False
+        mbs = _split_microbatches(batch, microbatches) if microbatches > 1 else [batch]
+        return {k: torch.cat([shard_of_full(mb[k], batch_pspec(mesh, mb[k].ndim, mb_rows),
+                                            mesh) for mb in mbs]) for k in batch}, True
+
+    def mean(x, split):
+        if not split:
+            return x
+        return (all_reduce(x.float(), "sum", batch_group) / n_batch).to(x.dtype)
+
+    def update(state, grads, lr):
+        """``make_train_step``'s update on the state's slices (elementwise
+        optimizers) or on whole leaves (adafactor); returns the norm."""
+        if elementwise:
+            g = tree_map(lambda x, pl: shard_of_full(x, pl.gather, mesh), grads, plans)
+            params, opt, ef, group, n_copies = (state.params, state.opt, state.ef,
+                                                whole_group, copies)
+        else:
+            g = tree_map(lambda x, ls: gather_to_full(x, ls, mesh), grads, local)
+            gat = lambda t, sp: (None if t is None else
+                                 tree_map(lambda x, s: gather_to_full(x, s, mesh), t, sp))
+            # adafactor's moments follow the state's own order of its leaves
+            nu_specs = gspmd_state_specs(cfg, tcfg, mesh, strategy, shapes=tree_map(
+                lambda p, w: w, state.params, shapes)).opt.nu
+            params, ef = gat(state.params, specs.params), gat(state.ef, specs.ef)
+            opt = state.opt._replace(mu=gat(state.opt.mu, specs.opt.mu),
+                                     nu=gat(state.opt.nu, nu_specs))
+            group = n_copies = None
+        del grads
+        g, ef = compress_tree(g, wire, ef, group)
+        g, gnorm = clip_by_global_norm(g, tcfg.grad_clip, group, n_copies)
+        opt_update(params, g, opt, tcfg, lr)
+        if not elementwise:
+            for sl, w, sp in ((state.params, params, specs.params),
+                              (state.opt.mu, opt.mu, specs.opt.mu),
+                              (state.opt.nu, opt.nu, nu_specs), (state.ef, ef, specs.ef)):
+                if sl is not None:
+                    tree_map(lambda a, b, s: a.copy_(shard_of_full(b, s, mesh)), sl, w, sp)
+        return gnorm
+
+    def step(state: TrainState, batch):
+        with manual_mode(mesh):
+            with region("gather_params"):
+                compute = tree_map(lambda p, pl: gather_to_full(p, pl.gather, mesh),
+                                   state.params, plans)
+            with region("grad_compute"):
+                rows, split = rank_rows(batch)
+                loss, metrics, grads = _loss_and_grads(grad_split if split else grad_whole,
+                                                       compute, rows, microbatches,
+                                                       axes=axes)
+            del compute
+            with region("grad_reduce"), torch.no_grad():
+                grads = tree_map(lambda g: mean(g, split), grads)
+                loss = mean(loss, split)
+                metrics = {k: (all_reduce(v, "sum", batch_group) if split else v)
+                           if k == "tokens" else mean(v, split) for k, v in metrics.items()}
+            with region("update"), torch.no_grad():
+                lr = warmup_cosine(state.opt.step, peak_lr=tcfg.learning_rate,
+                                   warmup_steps=tcfg.warmup_steps,
+                                   total_steps=tcfg.total_steps)
+                gnorm = update(state, grads, lr)
+        metrics = dict(metrics)
+        metrics.update(grad_norm=gnorm, lr=lr, loss=loss)
+        step.transient_bytes = {"gathered_params": int(compute_bytes - slice_bytes),
+                                "reduced_grads_fp32": 4 * compute_numel if split else 0,
+                                "whole_update": int(whole_update)}
+        return TrainState(state.params, state.opt._replace(step=state.opt.step + 1),
+                          state.ef), metrics
+
+    step.transient_bytes = None
+    return step

@@ -99,3 +99,43 @@ def pid(ctx):
     """This rank's process id."""
     import os
     return os.getpid()
+
+
+def gspmd_steps(ctx, cfg, tcfg, strategy, tree, batches, microbatches=1):
+    """``make_gspmd_train_step`` over the global ``batches`` (numpy dicts)
+    from the reference's whole params ``tree`` (``pvalues``, numpy),
+    converted and cut to this rank's slices of the state. Returns each
+    step's loss and grad norm, and on rank 0 the final state gathered whole
+    (numpy, ``tree_leaves`` order): params, mu, nu and the int8_ef
+    residual, each None where the state has none."""
+    from repro_torch.dist.sharding import gather_to_full
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.train.step import (gspmd_state_specs, init_gspmd_train_state,
+                                        make_gspmd_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = ctx.mesh
+    full = params_from_jax(tree, cfg, device=ctx.device)
+    state = init_gspmd_train_state(cfg, tcfg, mesh, strategy, params=full)
+    step = make_gspmd_train_step(cfg, tcfg, mesh, strategy, microbatches=microbatches)
+    losses, gnorms = [], []
+    for b in batches:
+        state, metrics = step(state, {k: torch.from_numpy(v).to(ctx.device)
+                                      for k, v in b.items()})
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    specs = gspmd_state_specs(cfg, tcfg, mesh, strategy, shapes=full)
+
+    def whole(t, sp):
+        if t is None:
+            return None
+        t = tree_map(lambda x, s: gather_to_full(x, s, mesh), t, sp)
+        return [x.float().cpu().numpy() for x in tree_leaves(t)]
+
+    parts = {"params": whole(state.params, specs.params),
+             "mu": whole(state.opt.mu, specs.opt.mu),
+             "nu": whole(state.opt.nu, specs.opt.nu),
+             "ef": whole(state.ef, specs.ef)}
+    return {"losses": losses, "grad_norm": gnorms,
+            "state": parts if ctx.rank == 0 else None,
+            "transient_bytes": step.transient_bytes}

@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -442,19 +443,28 @@ def test_train_pool_is_the_mesh(capsys):
     assert [r["rank"] for r in report["ranks"]] == [0, 1]
 
 
-@pytest.mark.parametrize("argv,reason", [
-    (["--strategy", "dp", "--optimizer", "adafactor", "--devices", "8"],
+@pytest.mark.parametrize("argv,devices,mode,reason", [
+    (["--strategy", "dp", "--optimizer", "adafactor"], 8, [],
      "auto fallback: adafactor needs full-dim factored moments"),
-    (["--devices", "4", "--batch", "3"],
-     "auto fallback: batch 3 not divisible over the batch axes"),
-    (["--devices", "4", "--mode", "gspmd"], "requested"),
+    (["--batch", "3"], 4, [], "auto fallback: batch 3 not divisible over the batch axes"),
+    ([], 4, ["--mode", "gspmd"], "requested"),
 ])
-def test_train_gspmd_over_devices_is_not_ported(argv, reason, capsys):
-    """No silent switch: the reference's reason, then "gspmd not ported"."""
+def test_train_gspmd_over_devices_runs(argv, devices, mode, reason, capsys):
+    """No silent switch: the reference's path reason, then the GSPMD step
+    over the ranks (not the single device), whose fp32 losses are the
+    single-device step's."""
     from repro_torch.launch import train
-    with pytest.raises(SystemExit, match="gspmd not ported") as e:
-        train.main(["--reduced", "--device", "cpu", "--steps", "1", *argv])
-    assert reason in str(e.value)
+    base = ["--reduced", "--device", "cpu", "--steps", "3", "--seq", "16",
+            "--dtype", "float32", *argv]
+    report = train.main(base + ["--devices", str(devices), *mode])
+    out = capsys.readouterr().out
+    assert f"path=gspmd (most-square fallback; {reason}" in out
+    assert report["path"] == "gspmd" and report["path_reason"].startswith(reason)
+    assert report["pool"]["ranks"] == devices and len(report["ranks"]) == devices
+    assert all(r["transient_bytes"] is not None for r in report["ranks"])
+    single = train.main(base)
+    assert single["path_reason"] == "auto fallback: single device"
+    np.testing.assert_allclose(report["losses"], single["losses"], rtol=1e-5)
 
 
 def test_train_sharded_mode_needs_a_world(capsys):
