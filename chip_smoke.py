@@ -5,7 +5,8 @@ plain PyTorch versions.
   python3 chip_smoke.py
 
 Phases, by number. They run in the order 1-13, 22 (a), 16-19, then on one
-pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23 (c). The
+pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23 (c), 24 (c),
+24 (d); phase 24 (a) and (b) ride on phases 8 and 6. The
 pool starts in the background before phase 16, beside the single-device
 phases 16-19, and phase 14 runs in a process of its own
 (``--paper-pipeline``) beside phases 22 (b) to 23; its output is printed
@@ -154,15 +155,16 @@ exits non-zero:
     prepended, their labels masked), each with exact launches. Every run
     through an entry point checks that its report's ``param_count`` is the
     config's handed to it;
-20. the sharded LM train step (``sharded_lm``): full-width smollm-360m
+20. the sharded LM train step (``sharded_lm``): smollm-360m at full width
+    on 8 of its 32 layers
     through ``launch.train.main(["--devices", "4", "--strategy",
     "fsdp_tp", "--compression", "int8_ef", ...])`` (adamw, batch 8 x seq
     512, a warm-up and 2 steps) over 4 ranks of phase 15's pool sharing the
     card (gloo, mesh data 2 x model 2, the legacy body): the path, mesh, pool
     and every rank on the card; step 0's loss against the single-device
     loss on the same batch and seed within the bf16 tier; per rank and
-    step exactly 32 flash ``tile`` launches (its 4 rows) and one absmax +
-    one quantize launch per parameter tensor (290); each rank's peak
+    step exactly 8 flash ``tile`` launches (its 4 rows) and one absmax +
+    one quantize launch per parameter tensor (74); each rank's peak
     memory and their sum under the card's. Then, on the same 4 ranks, one
     overlap-body step held to the legacy body's at the same mesh in fp32
     (the MLP split on model, attention streamed: 15 heads do not divide
@@ -201,7 +203,8 @@ exits non-zero:
     steps), every rank's codec launches exact by phase 15 (b)'s count per
     int8 iteration, every fixed-work ms finite and positive; (c) after phase
     21, ``launch.train.main(["--strategy", "auto", "--report-comm",
-    "--devices", "4", ...])``: full-width smollm-360m, adamw + int8_ef, batch
+    "--devices", "4", ...])``: smollm-360m at full width on 8 of its 32
+    layers, adamw + int8_ef, batch
     8 x 512, ``AUTO_STEPS`` steps over 4 ranks, the strategy run equal to
     ``choose_strategy``'s on the same inputs (recomputed here) and the
     report's ``planner`` its decision, ``comm`` present, losses finite and
@@ -229,13 +232,39 @@ exits non-zero:
     290 quantize + 290 dequantize launches a rank a step, peak memory and
     the step's transient bytes printed.
 
+24. tracing, checkpoints and the failure drill: (a) phase 8's smollm-360m
+    run with ``--trace-dir``: one ``step`` span a step with ``data``,
+    ``dispatch`` and ``wait`` children summing to within 10 % of it after
+    the first step, ``trace.jsonl`` read back (``obs.read_jsonl``) with the
+    report's span count, the Chrome trace with one ``X`` event a span, the
+    metrics' step histogram and the card's memory watermark, equal to
+    ``torch.cuda.max_memory_allocated``; the disabled recorder's overhead on
+    the profiled step printed, not gated; (b) phase 6's qwen2.5-3b run with
+    ``--trace-dir``: one ``prefill`` and 32 ``decode_step`` spans, their
+    median within 10 % of the report's decode ms a step; (c) on the pool of
+    8, the supervised failure drill through ``launch.train.main``:
+    smollm-360m at full width on 4 of its 32 layers, fp32, batch 8 x seq 128,
+    no codec, 6 steps, fsdp on 8 ranks, a checkpoint every 2 steps, the first
+    2 writes failing (``--inject-ckpt-fault``), 4 ranks lost at step 4 and
+    the run recovered onto tp on 4 with the survivors' program prebuilt:
+    exactly 2 writes retried, the recovery prebuilt and restored shard to
+    shard, every checkpoint left verified, the ``recovery/*`` spans traced,
+    the 6 losses within ``256 * np.spacing(np.float32(8.0))`` of an
+    uninterrupted fsdp run, every rank and step 4 ``cuda_core`` flash
+    launches and nothing else; then a fatal (``ValueError``) write fails on
+    its first attempt, and ``launch.elastic --quick`` drills the reference's
+    tiny config cold and prebuilt; (d) ``launch.trace_report --quick`` on
+    fsdp over the pool: every term of the attribution table measured above
+    0, every step's children within 10 % of it; the table printed. Phase 13
+    also times flash attention at phase 23's per-rank decode shapes.
+
 What keeps the run inside its time (PERF.md §4): one pool of 8 for phases
-15 and 20-23, started and warmed in the background; phase 14 beside phases
-22 (b) to 23; the single-device full-width trainings of smollm-360m (3 steps),
+15 and 20-24, started and warmed in the background; phase 14 beside phases
+22 (b) to 24; the single-device full-width trainings of smollm-360m (3 steps),
 mamba2, zamba2 and gemma2 (4 steps) where every LM trained 8; phase 20 a
-warm-up and 2 steps where it took 3; one profiled train step where the
-profiles read 2, and mamba2's step profiled once on each SSD design. No
-gate was dropped.
+warm-up and 2 steps where it took 3, and phase 22 (c), on 8 of smollm's
+32 layers (for phase 24's time); one profiled train step where the profiles read 2,
+and mamba2's step profiled once on each SSD design. No gate was dropped.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -248,6 +277,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import faulthandler
+import io
 import json
 import os
 import statistics
@@ -1204,6 +1234,112 @@ def _check_param_count(report, cfg, what):
              f"{cfg.param_count()}: the config handed to the entry point did not apply")
 
 
+# Phase 24 (a, b): what the traced trainer and server of phases 8 and 6 give
+TRACED = {}
+OVERHEAD_ROUNDS, OVERHEAD_BLOCK = 2, 1
+
+
+def train_trace_gate(report, trace_dir, steps, peak, card):
+    """Phase 24 (a): the spans of phase 8's traced run (``_spans_gate``),
+    ``trace.jsonl`` read back with the report's span count, the Chrome trace
+    with one ``X`` event a span, and the metrics' step histogram and memory
+    watermark, the run's ``torch.cuda.max_memory_allocated``."""
+    import shutil
+
+    from repro_torch.obs import read_jsonl
+    phase(f"traced training: phase 8's run with --trace-dir (phase 24 a)")
+    try:
+        data = read_jsonl(os.path.join(trace_dir, "trace.jsonl"))
+        with open(os.path.join(trace_dir, "trace_chrome.json")) as f:
+            chrome = json.load(f)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    cover, child_ms = _spans_gate(data, steps, "traced training")
+    if len(data.spans) != report["trace"]["spans"]:
+        fail(f"trace.jsonl holds {len(data.spans)} spans, the report "
+             f"{report['trace']['spans']}")
+    n_x = sum(e["ph"] == "X" for e in chrome["traceEvents"])
+    if n_x != len(data.spans):
+        fail(f"the Chrome trace holds {n_x} X events for {len(data.spans)} spans")
+    hist = report["metrics"].get("step_time_ms", {})
+    mark = report["metrics"].get("memory/peak_bytes_in_use_max", {}).get("value")
+    if hist.get("count") != steps or data.metrics != report["metrics"]:
+        fail(f"traced training metrics: step histogram {hist}")
+    if mark != peak:
+        fail(f"traced training memory watermark {mark} != max_memory_allocated {peak}")
+    step_ms = [round(s.duration_s * 1e3, 3) for s in data.find("step")]
+    print(f"  {len(data.spans)} spans; step spans ms {step_ms}; children's mean ms "
+          f"(steps 1..) {child_ms}; coverage per step {cover}; step_time_ms p50 "
+          f"{hist['p50']}; memory watermark {mark} B = max_memory_allocated; card {card}",
+          flush=True)
+    return {"step_ms": step_ms, "children_ms": child_ms, "coverage": cover,
+            "spans": len(data.spans), "peak_bytes": mark}
+
+
+def recorder_overhead(torch, step, card):
+    """The disabled recorder's cost on a step: blocks of steps with a
+    disabled recorder's spans and without, interleaved, the minimum of each
+    side; printed, not gated (host time spreads between runs, C6)."""
+    from repro_torch.obs import Recorder
+    off = Recorder(enabled=False)
+
+    def block(spans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(OVERHEAD_BLOCK):
+            if spans:
+                with off.span("step", category="train", step_num=i, phase="steady"):
+                    with off.span("data", category="train"):
+                        pass
+                    with off.span("dispatch", category="train"):
+                        step()
+                    with off.span("wait", category="train"):
+                        torch.cuda.synchronize()
+            else:
+                step()
+                torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OVERHEAD_BLOCK
+
+    plain, inst = [], []
+    for r in range(OVERHEAD_ROUNDS):
+        for spans in ((False, True) if r % 2 == 0 else (True, False)):
+            (inst if spans else plain).append(block(spans))
+    out = {"plain_ms": min(plain) * 1e3, "instrumented_ms": min(inst) * 1e3,
+           "overhead": (min(inst) - min(plain)) / min(plain)}
+    print(f"  disabled-recorder overhead on the step: {out['overhead']:+.3%} (plain "
+          f"{out['plain_ms']:.3f} ms vs instrumented {out['instrumented_ms']:.3f} ms, min "
+          f"of {OVERHEAD_ROUNDS} interleaved {OVERHEAD_BLOCK}-step blocks; not gated); "
+          f"card {card}", flush=True)
+    return out
+
+
+def serve_trace_gate(report, trace_dir, card):
+    """Phase 24 (b): phase 6's traced server: one ``prefill`` and GEN
+    ``decode_step`` spans, their median within 10 % of the report's decode
+    ms a step."""
+    import shutil
+
+    from repro_torch.obs import read_jsonl
+    try:
+        data = read_jsonl(os.path.join(trace_dir, "trace.jsonl"))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    n_pre, steps = len(data.find("prefill")), data.find("decode_step")
+    if (n_pre, len(steps)) != (1, GEN) or report["trace"]["spans"] != len(data.spans):
+        fail(f"traced serving: {n_pre} prefill and {len(steps)} decode_step spans")
+    med = statistics.median(s.duration_s * 1e3 for s in steps)
+    per_step = report["decode_s"] / GEN * 1e3
+    print(f"  traced serving (phase 24 b): 1 prefill span ({data.find('prefill')[0].duration_s * 1e3:.3f} ms), "
+          f"{GEN} decode_step spans, median {med:.3f} ms vs the report's {per_step:.3f} ms "
+          f"a step; card {card}", flush=True)
+    if abs(med - per_step) > 0.10 * per_step:
+        fail(f"traced serving: median decode_step span {med:.3f} ms is not within 10 % "
+             f"of the report's {per_step:.3f} ms a step")
+    TRACED["serve"] = {"decode_step_median_ms": med, "decode_ms_per_step": per_step,
+                       "prefill_ms": data.find("prefill")[0].duration_s * 1e3,
+                       "spans": len(data.spans)}
+
+
 def lm_serve(torch, dev, card, arch, env, prefix, n_layers=None, reduced_size=False):
     """An LM at full width (``n_layers`` cuts its depth) or ``--reduced``
     (``reduced_size``), served: (a) through ``launch.serve.main`` with every
@@ -1235,10 +1371,14 @@ def lm_serve(torch, dev, card, arch, env, prefix, n_layers=None, reduced_size=Fa
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
     keep = arch == ARCH and n_layers is None and not reduced_size
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_serve_trace_") if keep else None
     with registry:
         served = serve.main(["--arch", arch, *extra, "--batch", str(BATCH), "--prompt-len",
-                             str(PROMPT), "--gen", str(GEN), "--device", "cuda"],
+                             str(PROMPT), "--gen", str(GEN), "--device", "cuda",
+                             *(["--trace-dir", trace_dir] if keep else [])],
                             keep_logits=keep)
+    if keep:                                   # phase 24 (b): the traced server
+        serve_trace_gate(served.report, trace_dir, card)
     if keep:                                   # phase 23 (a) holds the sharded server to it
         SERVED[arch] = (served.tokens.cpu(), [x.float().cpu() for x in served.step_logits])
     got, got_designs, got_ssd = env.read_counts(), env.read_variants(), env.read_ssd_variants()
@@ -1397,12 +1537,17 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
           f"{steps} steps, {optimizer} lr {lr:g}, {compression}, remat {remat})")
     torch.cuda.reset_peak_memory_stats()
     env.reset_counts()
+    traced = arch == TRAIN_ARCH and not (n_layers or reduced_size)
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_train_trace_") if traced else None
     with registry:
         trained = train.main(["--arch", arch, *extra, "--batch", str(TRAIN_BATCH), "--seq",
                               str(seq), "--steps", str(steps), "--optimizer",
                               optimizer, "--lr", str(lr), "--compression", compression,
-                              "--remat", remat, "--device", "cuda", "--log-every", "1"])
+                              "--remat", remat, "--device", "cuda", "--log-every", "1",
+                              *(["--trace-dir", trace_dir] if traced else [])])
     peak = torch.cuda.max_memory_allocated()
+    if traced:                                 # phase 24 (a): the traced trainer
+        TRACED["train"] = train_trace_gate(trained, trace_dir, steps, peak, card)
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     got, got_designs, got_ssd = env.read_counts(), env.read_variants(), env.read_ssd_variants()
     # The codec: one launch of each kernel per parameter tensor per step, the
@@ -1463,6 +1608,8 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
     profile_steps(torch, train_one, PROFILE_TRAIN_STEPS, f"{arch} train step{cut}, bf16, "
                   f"batch {TRAIN_BATCH} x seq {seq}, {optimizer} + {compression}, "
                   f"remat {remat}", card)
+    if traced:
+        TRACED["train"]["overhead"] = recorder_overhead(torch, train_one, card)
     del holder, tbatch, step_fn
     torch.cuda.empty_cache()
     path = f"{prefix}train"
@@ -1479,6 +1626,8 @@ def lm_train(torch, dev, card, arch, env, prefix, lr, remat, *, optimizer="adamw
 # clip, lr 1: g = p0 - p1), per tensor within the reference test's
 # overlap-vs-legacy tolerance 2e-5 + 1e-5 * max|g_legacy|.
 SHARDED_LM_RANKS, SHARDED_LM_STRATEGY, SHARDED_LM_STEPS = 4, "fsdp_tp", 1 + 2
+# Its depth cut (8 of 32 layers) pays for phase 24's time.
+SHARDED_LM_LAYERS = 8
 SHARDED_LM_LOSS_TIER = 1 / 256
 SHARDED_BODIES_FLOOR = 2e-5
 
@@ -1502,13 +1651,13 @@ def sharded_lm(torch, dev, card, pool, then=None):
     from repro_torch.models import model as MD
     from repro_torch.tree import tree_leaves
 
-    full = get_config(TRAIN_ARCH)
+    full, registry, _, cut = _lm_config(TRAIN_ARCH, SHARDED_LM_LAYERS)
     B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_LM_RANKS
     mesh = plan_remesh(n).axes()
     rows = B // mesh["data"]
 
     # ---- (a) launch.train over the world -------------------------------------
-    phase(f"sharded {TRAIN_ARCH}: launch.train --devices {n} --strategy "
+    phase(f"sharded {TRAIN_ARCH}{cut}: launch.train --devices {n} --strategy "
           f"{SHARDED_LM_STRATEGY} (mesh {mesh}), adamw + int8_ef, batch {B} x seq {S}, "
           f"{SHARDED_LM_STEPS} steps, {n} of phase 15's {pool.world} ranks over gloo "
           f"sharing the card")
@@ -1516,12 +1665,14 @@ def sharded_lm(torch, dev, card, pool, then=None):
     held = pool.run(probes.release_memory, mesh={"data": pool.world})
     print(f"  device bytes the ranks still reserve after phase 15's jobs: {held}",
           flush=True)
-    report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
-                         SHARDED_LM_STRATEGY, "--compression", "int8_ef", "--optimizer",
-                         "adamw", "--batch", str(B), "--seq", str(S), "--steps",
-                         str(SHARDED_LM_STEPS), "--device", dev.type, "--log-every", "1"],
-                        pool=pool)
+    with registry:
+        report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
+                             SHARDED_LM_STRATEGY, "--compression", "int8_ef",
+                             "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
+                             "--steps", str(SHARDED_LM_STEPS), "--device", dev.type,
+                             "--log-every", "1"], pool=pool)
     run_s = time.perf_counter() - t0
+    _check_param_count(report, full, "sharded train")
     if report["path"] != "sharded" or report["mesh"] != [mesh["data"], mesh["model"]]:
         fail(f"sharded train ran path {report['path']} on mesh {report['mesh']}")
     want_pool = {"ranks": n, "backend": "gloo", "cards": 1}
@@ -1581,7 +1732,7 @@ def sharded_lm(torch, dev, card, pool, then=None):
            "launches_per_rank_step": want}
 
     # ---- (b) overlap body vs legacy body; a profiled step per rank --------------
-    phase(f"sharded {TRAIN_ARCH}: overlap body vs legacy body in fp32 at mesh {mesh}, "
+    phase(f"sharded {TRAIN_ARCH}{cut}: overlap body vs legacy body in fp32 at mesh {mesh}, "
           f"then a profiled legacy step per rank")
     cfg32 = dataclasses.replace(full, dtype="float32", param_dtype="float32")
     sgd = TrainConfig(learning_rate=1.0, optimizer="sgd", beta1=0.0, weight_decay=0.0,
@@ -1868,6 +2019,7 @@ PLAN_TOP10 = (("dp", 2, 128, "int8"), ("dp", 4, 128, "int8"),
               ("fsdp_tp", 2, 128, "int8"), ("tp", 2, 128, "int8"))
 PLAN_ITERS, PLAN_ROUNDS = 2, 2
 AUTO_STEPS = 3
+AUTO_LAYERS = 8     # phase 22 (c)'s depth cut, for phase 24's time
 
 
 def _check_plan(plan, calibrated, what):
@@ -1989,11 +2141,11 @@ def planner_measure_phase(torch, dev, card, pool):
 
 def auto_train_phase(torch, dev, card, pool):
     """Phase 22 (c): ``launch.train --strategy auto --report-comm`` of
-    full-width smollm-360m over 4 ranks of ``pool``. Returns ({kernel:
+    smollm-360m at full width on ``AUTO_LAYERS`` of its 32 layers over 4
+    ranks of ``pool``. Returns ({kernel:
     launches summed over ranks and steps}, numbers)."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
     from repro_torch.launch.mesh import plan_remesh
@@ -2001,21 +2153,23 @@ def auto_train_phase(torch, dev, card, pool):
     from repro_torch.perf.planner import choose_strategy
     from repro_torch.tree import tree_leaves
 
-    full = get_config(TRAIN_ARCH)
+    full, registry, _, cut = _lm_config(TRAIN_ARCH, AUTO_LAYERS)
     B, S, n = TRAIN_BATCH, TRAIN_SEQ, SHARDED_LM_RANKS
     mesh = plan_remesh(n).axes()
     phase(f"planner: launch.train --strategy auto --report-comm --devices {n} "
-          f"(mesh {mesh}), {TRAIN_ARCH} at full width, adamw + int8_ef, batch {B} x "
+          f"(mesh {mesh}), {TRAIN_ARCH}{cut}, adamw + int8_ef, batch {B} x "
           f"seq {S}, {AUTO_STEPS} steps")
     t0 = time.perf_counter()
     decision = choose_strategy(full, batch=B, seq=S, n_devices=n, optimizer="adamw",
                                compression="int8_ef", mesh_axes=mesh)
-    report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
-                         "auto", "--report-comm", "--compression", "int8_ef",
-                         "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
-                         "--steps", str(AUTO_STEPS), "--device", dev.type,
-                         "--log-every", "1"], pool=pool)
+    with registry:
+        report = train.main(["--arch", TRAIN_ARCH, "--devices", str(n), "--strategy",
+                             "auto", "--report-comm", "--compression", "int8_ef",
+                             "--optimizer", "adamw", "--batch", str(B), "--seq", str(S),
+                             "--steps", str(AUTO_STEPS), "--device", dev.type,
+                             "--log-every", "1"], pool=pool)
     run_s = time.perf_counter() - t0
+    _check_param_count(report, full, "--strategy auto train")
     if report["strategy"] != decision.strategy or report["path"] != "sharded":
         fail(f"--strategy auto ran {report['strategy']} on path {report['path']}, "
              f"the planner chose {decision.strategy}")
@@ -2355,6 +2509,207 @@ def gspmd_train_phase(torch, dev, card, pool):
           f"transient bytes a rank (beyond its state's slices) {transient}; run "
           f"{run_s:.1f} s; card {card}", flush=True)
     return dict(totals), numbers
+
+
+# Phase 24 (c): the supervised failure drill on the pool of 8. smollm-360m at
+# full width on a depth cut (a full-depth fp32 AdamW state is ~4.3 GB a
+# checkpoint), fp32, batch 8 x seq 128, no codec, 6 steps: fsdp on 8 ranks,
+# a checkpoint every 2 steps, 4 ranks lost at step 4, recovery onto tp on 4,
+# the first 2 checkpoint writes failing (transient OSError), the survivors'
+# program prebuilt in the background. Its losses against an uninterrupted
+# fsdp run within the reference's tier (tests/test_elastic.py).
+DRILL_LAYERS, DRILL_BATCH, DRILL_SEQ, DRILL_STEPS = 4, 8, 128, 6
+DRILL_FAIL, DRILL_EVERY, DRILL_FAULTS = 4, 2, 2
+COVERAGE_TOL = 0.10                        # a step's children within 10 %
+
+
+def _spans_gate(data, n_steps, what):
+    """One ``step`` span a step with ``data``, ``dispatch`` and ``wait``
+    children summing to within COVERAGE_TOL of it, after the first;
+    returns the per-step coverage and the children's mean ms."""
+    steps = data.find("step")
+    if len(steps) != n_steps:
+        fail(f"{what}: {len(steps)} step spans for {n_steps} steps")
+    cover, child_ms = [], collections.defaultdict(list)
+    for i, s in enumerate(steps):
+        kids = data.children_of(s)
+        if sorted(k.name for k in kids) != ["data", "dispatch", "wait"]:
+            fail(f"{what}: step {i}'s children are {[k.name for k in kids]}")
+        c = sum(k.duration_s for k in kids) / s.duration_s
+        cover.append(round(c, 4))
+        for k in kids:
+            child_ms[k.name].append(k.duration_s * 1e3)
+        if i > 0 and abs(1 - c) > COVERAGE_TOL:
+            fail(f"{what}: step {i}'s children cover {c:.4f} of it")
+    return cover, {k: round(statistics.mean(v[1:] or v), 3) for k, v in child_ms.items()}
+
+
+def failure_drill_phase(torch, dev, card, pool):
+    """Phase 24 (c), on the pool of 8: the supervised failure drill, the
+    fatal write, then ``launch.elastic --quick``. Returns (launches summed
+    over ranks and steps, flash by design, numbers)."""
+    import shutil
+
+    from repro_torch.dist import probes
+    from repro_torch.launch import elastic, train
+    from repro_torch.obs import read_jsonl
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.supervisor import RetryPolicy, Supervisor
+
+    import numpy as np
+    tol = float(256 * np.spacing(np.float32(8.0)))      # tests/test_elastic.py:450
+    full, registry, _, cut = _lm_config(TRAIN_ARCH, DRILL_LAYERS)
+    phase(f"failure drill: launch.train {TRAIN_ARCH}{cut}, fp32, batch {DRILL_BATCH} x "
+          f"seq {DRILL_SEQ}, {DRILL_STEPS} steps, fsdp on {SHARDED_WORLD} ranks, a "
+          f"checkpoint every {DRILL_EVERY}, {SHARDED_WORLD // 2} ranks lost at step "
+          f"{DRILL_FAIL}, recovery onto tp, {DRILL_FAULTS} write faults, survivors "
+          f"prebuilt (phase 24 c)")
+    t_phase = time.perf_counter()
+    pool.run(probes.release_memory, mesh={"data": SHARDED_WORLD})
+    base = ["--arch", TRAIN_ARCH, "--devices", str(SHARDED_WORLD), "--strategy", "fsdp",
+            "--dtype", "float32", "--batch", str(DRILL_BATCH), "--seq", str(DRILL_SEQ),
+            "--steps", str(DRILL_STEPS), "--device", dev.type, "--log-every", "1"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drill_")
+    ckpt_dir, trace_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "trace")
+    try:
+        with registry:
+            t0 = time.perf_counter()
+            ref = train.main(base, pool=pool)
+            ref_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            drill = train.main(base + [
+                "--ckpt-dir", ckpt_dir, "--ckpt-every", str(DRILL_EVERY),
+                "--simulate-failure", str(DRILL_FAIL), "--recover-strategy", "tp",
+                "--inject-ckpt-fault", str(DRILL_FAULTS), "--max-retries", "4",
+                "--precompile-survivors", "1", "--precompile-block",
+                "--trace-dir", trace_dir], pool=pool)
+            drill_s = time.perf_counter() - t0
+        _check_param_count(drill, full, "failure drill")
+        rec, sup = drill.get("recovery"), drill["supervisor"]
+        if rec is None:
+            fail("failure drill ran without recovering")
+        if sup["retries"] != DRILL_FAULTS:
+            fail(f"failure drill: the supervisor retried {sup['retries']} writes, "
+                 f"expected {DRILL_FAULTS}")
+        if not rec["precompiled"] or rec["restore_mode"] != "shard-to-shard":
+            fail(f"failure drill recovery: precompiled {rec['precompiled']}, restore "
+                 f"mode {rec['restore_mode']}")
+        if (rec["after"]["strategy"], rec["after"]["devices"], drill["strategy"]) != \
+                ("tp", SHARDED_WORLD // 2, "tp"):
+            fail(f"failure drill recovered onto {rec['after']}")
+        cm = CheckpointManager(ckpt_dir)
+        left = cm.available_steps()
+        if not left or not all(cm.verify(s) for s in left):
+            fail(f"failure drill: checkpoints {left} do not all verify")
+        trace = read_jsonl(os.path.join(trace_dir, "trace.jsonl"))
+        names = {s.name for s in trace.spans}
+        want_spans = {"recovery/compile", "recovery/plan", "recovery/restore"}
+        if not want_spans <= names:
+            fail(f"failure drill trace lacks {want_spans - names}")
+        errs = [abs(a - b) for a, b in zip(drill["losses"], ref["losses"])]
+        if (len(drill["losses"]) != DRILL_STEPS or len(ref["losses"]) != DRILL_STEPS
+                or max(errs) > tol):
+            fail(f"failure drill losses {drill['losses']} vs uninterrupted "
+                 f"{ref['losses']}: |d| {errs} (tol {tol})")
+        # every rank, every step: one cuda_core flash call a layer (fp32), no codec
+        want = {"flash_attention": DRILL_LAYERS, "quantize_absmax": 0, "quantize_int8": 0,
+                "dequantize_int8": 0, "ssd_scan": 0,
+                "flash_by_design": {"cuda_core": DRILL_LAYERS, "tile": 0, "split_kv": 0,
+                                    "split_kv_combine": 0}}
+        totals, designs = collections.Counter(), collections.Counter()
+        for r in drill["ranks"]:
+            for step, got in enumerate(r["launches_per_step"]):
+                if got != want:
+                    fail(f"failure drill rank {r['rank']} step {step} launched {got}, "
+                         f"expected {want}")
+                totals.update({k: v for k, v in got.items() if isinstance(v, int)})
+                designs.update(got["flash_by_design"])
+        writes = drill.get("checkpoints", [])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # a fatal write fails on its first attempt: no retry budget spent on it
+    fatal_dir = tempfile.mkdtemp(prefix="chip_smoke_fatal_")
+    try:
+        def bad_hook(op, step):
+            raise ValueError("shape mismatch")
+        cm = CheckpointManager(fatal_dir, fault_hook=bad_hook)
+        sup2 = Supervisor(policy=RetryPolicy(max_attempts=4, backoff_s=0.0),
+                          sleep=lambda s: None)
+        attempts = []
+
+        def write():
+            attempts.append(1)
+            cm.save(1, {"w": torch.ones(4, device=dev)})
+            cm.wait()
+        try:
+            sup2.run("checkpoint_save", write)
+            fail("a fatal checkpoint write did not raise")
+        except ValueError:
+            pass
+        if len(attempts) != 1 or sup2.retries != 0:
+            fail(f"a fatal write took {len(attempts)} attempts ({sup2.retries} retries)")
+    finally:
+        shutil.rmtree(fatal_dir, ignore_errors=True)
+
+    # launch.elastic --quick: the reference's tiny drill, cold and prebuilt
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = elastic.main(["--quick", "--device", dev.type], pool=pool)
+    elastic_s = time.perf_counter() - t0
+    er = rows[0]
+    numbers = {
+        "recovery": rec, "supervisor": sup, "checkpoints": writes,
+        "losses": drill["losses"], "ref_losses": ref["losses"], "loss_diffs": errs,
+        "step_ms": drill["step_ms"], "ref_step_ms": ref["step_ms"],
+        "ranks_peak_mem_bytes": [r["peak_mem_bytes"] for r in drill["ranks"]],
+        "trace": drill["trace"], "ref_s": ref_s, "drill_s": drill_s,
+        "elastic_quick": {k: er[k] for k in ("cold", "warm")}, "elastic_s": elastic_s,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"  recovery {json.dumps(rec)}; supervisor {json.dumps(sup)}; checkpoints "
+          f"(bytes, write s) {[(w['step'], w['bytes'], round(w['write_s'], 3)) for w in writes]}"
+          f"; losses {drill['losses']} vs uninterrupted {ref['losses']}: max |d| "
+          f"{max(errs):.3e} (tol {tol:.3e}); step_ms {drill['step_ms']} (uninterrupted "
+          f"{ref['step_ms']}); launches per rank per step {want}; {len(left)} checkpoints "
+          f"left, all verified; the fatal write raised on its first attempt; runs "
+          f"{ref_s:.1f} s + {drill_s:.1f} s; card {card}", flush=True)
+    print(f"  launch.elastic --quick (reduced fp32, fsdp 8 -> 4): cold "
+          f"{json.dumps(er['cold'])}; prebuilt {json.dumps(er['warm'])}; {elastic_s:.1f} s",
+          flush=True)
+    return dict(totals), dict(designs), numbers
+
+
+def attribution_phase(torch, dev, card, pool):
+    """Phase 24 (d): ``launch.trace_report --quick`` on fsdp over the pool of
+    8. Returns the numbers."""
+    from repro_torch.launch import trace_report
+    phase(f"attribution: launch.trace_report --quick --strategies fsdp on the pool of "
+          f"{SHARDED_WORLD} (phase 24 d)")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        points = trace_report.main(["--quick", "--strategies", "fsdp", "--device",
+                                    dev.type], pool=pool)
+    (p,) = points
+    missing = [r.term for r in p["rows"] if not (r.measured_ms or 0) > 0]
+    if missing:
+        fail(f"attribution: terms without a measured time: {missing}")
+    if any(abs(1 - c) > COVERAGE_TOL for c in p["step_coverage"]):
+        fail(f"attribution: span coverage {p['step_coverage']}")
+    from repro_torch.obs import render_markdown
+    print(render_markdown(p["rows"], title=f"fsdp at {p['mesh']} (predicted: the "
+                                           f"checked-in host-pool calibration; measured: "
+                                           f"gloo on one card; {card})"), flush=True)
+    numbers = {"step_ms": p["step_ms"], "coverage": p["coverage"],
+               "step_coverage": p["step_coverage"], "children_ms": p["children_ms"],
+               "regions_ms": p["regions_ms"], "rows": [r.to_dict() for r in p["rows"]],
+               "drift": p["drift"].to_dict(), "decomp": p["decomp"],
+               "overhead": p["overhead"], "run_s": time.perf_counter() - t0}
+    print(f"  step {p['step_ms']:.3f} ms, coverage {p['coverage']:.4f} (per step "
+          f"{p['step_coverage']}); regions {json.dumps(p['regions_ms'])}; drift: "
+          f"{p['drift'].message}; disabled-recorder overhead "
+          f"{p['overhead']['overhead']:+.2%} (not gated); {numbers['run_s']:.1f} s; "
+          f"card {card}", flush=True)
+    return numbers
 
 
 def main() -> None:
@@ -3184,6 +3539,51 @@ def main() -> None:
               f"({n_bytes} B, {n_ops} flop); card {card}", flush=True)
         del q, k, v, ref, qt, kt, vt, mask
 
+    # Flash attention at the sharded servers' per-rank decode shapes (phase
+    # 23): qwen2.5-3b tp at 2 x 2 (each rank 2 rows, 8 q heads over 1 kv head,
+    # 64 slots, bf16: split-KV) and the fp32 4-layer cut at 2 x 4 (2 rows,
+    # the attention whole: 16 over 2, PROMPT + SERVE_FP32_GEN slots: CUDA
+    # cores), each beside SDPA (no mask: every slot attendable) and its bound.
+    qcfg = get_config(ARCH)
+    qh, qkv, qd = qcfg.n_heads, qcfg.n_kv_heads, qcfg.get_head_dim()
+    for label, (B, Sq, Skv), (nh, nkv, dh), dname in (
+            ("decode_rank_tp", (BATCH // 2, 1, PROMPT + GEN), (qh // 2, qkv // 2, qd),
+             "bfloat16"),
+            ("decode_rank_fp32", (BATCH // 2, 1, PROMPT + SERVE_FP32_GEN), (qh, qkv, qd),
+             "float32")):
+        dtype = getattr(torch, dname)
+        q, k, v = inputs(B, Sq, Skv, nh, nkv, dh, dtype)
+        q_pos, kv_pos = tail_pos(Sq, Skv)
+        spec = AttnSpec()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ref = FA.attention_plain(q, k, v, q_pos, kv_pos, spec)
+        got = FA.flash_attention(q, k, v, q_pos, kv_pos, spec)
+        err = (got.float() - ref.float()).abs().max().item()
+        if not torch.allclose(got.float(), ref.float(), atol=TOL[dname], rtol=TOL[dname]):
+            fail(f"flash attention at the {label} shape: {err:.3e}")
+        lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True).transpose(1, 2)
+        if not torch.allclose(lib.float(), ref.float(), atol=TOL[dname], rtol=TOL[dname]):
+            fail(f"SDPA is not the {label} row's function")
+        mask = FA.mask_bias(q_pos, kv_pos, spec) == 0
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ref, q_pos, kv_pos))
+        bound_ms, bound_by = bound(n_bytes, 4 * B * nh * dh * int(mask.sum().item()), dname)
+        design = FA.plan(q.shape, k.shape, q.dtype, k.dtype, v.dtype)
+        rows[label] = {
+            "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
+            "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True)), "library_call": "sdpa none",
+            "bound_ms": bound_ms, "bound_by": bound_by, "causal": True,
+            "design": design.variant, "n_splits": design.n_splits, "max_abs_err": err,
+            "dtype": dname}
+        r = rows[label]
+        print(f"  {label:18s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] {dname} "
+              f"{design.variant} ({design.n_splits} split): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{bound_ms:.6f} ms by {bound_by}, |kernel-plain| {err:.3e}; card {card}",
+              flush=True)
+        del q, k, v, ref, got, lib, qt, kt, vt, mask
+
     # Flash attention at gemma2-2b's, whisper-tiny's, zamba2-1.2b's shared
     # block's, llama4-scout's and deepseek-v3's MLA prefill shapes, each beside
     # its bound and yardstick (SDPA wherever there is no softcap; zamba2's
@@ -3556,7 +3956,9 @@ def main() -> None:
                     arch_sweep_phase(torch, dev, card, pool, env),
                     auto_train_phase(torch, dev, card, pool),
                     sharded_serve_phase(torch, dev, card, pool),
-                    gspmd_train_phase(torch, dev, card, pool)))))
+                    gspmd_train_phase(torch, dev, card, pool),
+                    failure_drill_phase(torch, dev, card, pool),
+                    attribution_phase(torch, dev, card, pool)))))
     finally:
         from torch._inductor.async_compile import shutdown_compile_workers
         shutdown_compile_workers()
@@ -3565,7 +3967,8 @@ def main() -> None:
     paper[0].finish()
     sharded_lm_counts, (rq, rkv), sharded_lm_numbers, later = sharded_lm_out
     ((arch_counts, arch_rows), (auto_counts, auto_numbers),
-     (serve_counts, serve_designs, serve_numbers), (gspmd_counts, gspmd_numbers)) = later
+     (serve_counts, serve_designs, serve_numbers), (gspmd_counts, gspmd_numbers),
+     (drill_counts, drill_designs, drill_numbers), attribution_numbers) = later
     phase(f"flash attention at the sharded step's per-rank shape q {list(rq)}")
     q, k, v = inputs(*rq[:2], rkv[1], rq[2], rkv[2], rq[3], torch.bfloat16)
     q_pos, kv_pos = tail_pos(rq[1], rkv[1])
@@ -3604,6 +4007,9 @@ def main() -> None:
     phase23 = {"sharded_serve": serve_numbers, "sharded_serve_fp32": fp32_numbers,
                "gspmd_train": gspmd_numbers}
     print(f"  phase 23 numbers: {json.dumps(phase23)}", flush=True)
+    phase24 = {"traced_train": TRACED.get("train"), "traced_serve": TRACED.get("serve"),
+               "failure_drill": drill_numbers, "attribution": attribution_numbers}
+    print(f"  phase 24 numbers: {json.dumps(phase24)}", flush=True)
 
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
@@ -3615,7 +4021,8 @@ def main() -> None:
              "auto_train": {k: auto_counts.get(k, 0) for k in counters},
              "sharded_serve": {k: serve_counts.get(k, 0) for k in counters},
              "sharded_serve_fp32": {k: fp32_counts.get(k, 0) for k in counters},
-             "gspmd_train": {k: gspmd_counts.get(k, 0) for k in counters}}
+             "gspmd_train": {k: gspmd_counts.get(k, 0) for k in counters},
+             "failure_drill": {k: drill_counts.get(k, 0) for k in counters}}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}
@@ -3631,7 +4038,8 @@ def main() -> None:
                                "mamba2_serve": mserve_variants,
                                "mamba2_train": mtrain_variants, **lm_designs,
                                "sharded_serve": serve_designs,
-                               "sharded_serve_fp32": fp32_designs},
+                               "sharded_serve_fp32": fp32_designs,
+                               "failure_drill": drill_designs},
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],

@@ -2,7 +2,10 @@
 (``repro.dist.sharding``: ``Strategy``, ``STRATEGIES``, ``resolve_strategy``,
 ``CollectiveDesc``, ``STRATEGY_COLLECTIVES``, copied), the logical-axis
 resolution (``BATCH_AXES``, ``axis_sizes``, ``logical_to_pspec``,
-``param_pspecs``, ``batch_pspec``, ``spec_to_json``), and a mesh of
+``param_pspecs``, ``batch_pspec``, ``spec_to_json``), the block arithmetic
+of sharded checkpoints (``spec_from_json``, ``shard_grid``,
+``shard_coord``, ``assemble_shards``, ``assemble_region``, copied, and
+``shard_region``), and a mesh of
 ``torch.distributed`` process groups with the helpers of the manual
 (shard_map) paths: ``Mesh``, ``spec_entries``, ``gather_to_full``,
 ``shard_of_full``, ``manual_mode`` (the mesh the layer code's Megatron
@@ -239,6 +242,133 @@ def spec_to_json(spec) -> list:
     """JSON-friendly entries: None | "axis" | ["axis", ...]."""
     return [None if e is None else list(e) if isinstance(e, tuple) else str(e)
             for e in tuple(spec)]
+
+
+# The sharded checkpoint format (``train.checkpoint``) records every leaf's
+# spec in its sidecar, so a restore can reassemble a tensor from the blocks
+# written under any (mesh, strategy) and cut it again under any other.
+
+def spec_from_json(entries) -> Tuple:
+    """Inverse of ``spec_to_json``."""
+    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+
+
+def shard_grid(spec, shape: Sequence[int], mesh) -> Tuple[int, ...]:
+    """Blocks per dim a tensor splits into under ``spec`` on ``mesh``. A dim
+    whose mesh-axes product does not divide it counts as unsharded (grid 1),
+    as the resolver skips such a candidate."""
+    sizes = axis_sizes(mesh)
+    grid = []
+    for dim, entry in zip(shape, spec_entries(spec, len(shape))):
+        dim = int(dim)
+        if entry is None:
+            grid.append(1)
+            continue
+        prod = 1
+        for a in _axes_of(entry):
+            prod *= int(sizes.get(a, 1))
+        grid.append(prod if prod > 0 and dim % prod == 0 else 1)
+    return tuple(grid)
+
+
+def shard_coord(index: Sequence, shape: Sequence[int],
+                grid: Sequence[int]) -> Tuple[int, ...]:
+    """Grid coordinate of a block from its global-index slices: positional in
+    the global tensor, so assembly does not depend on which mesh axis (or
+    axis order, for a jointly sharded dim) made the block."""
+    coord = []
+    for sl, dim, g in zip(tuple(index) + (slice(None),) * len(grid), shape, grid):
+        start = 0 if sl.start is None else int(sl.start)
+        block = int(dim) // int(g)
+        coord.append(start // block if block else 0)
+    return tuple(coord)
+
+
+def shard_region(spec, shape: Sequence[int], mesh: "Mesh") -> Tuple[slice, ...]:
+    """The global slices of this rank's block under ``spec`` (the region
+    ``shard_of_full`` cuts)."""
+    region = []
+    for dim, entry in zip(shape, spec_entries(spec, len(shape))):
+        dim = int(dim)
+        if entry is None:
+            region.append(slice(0, dim))
+            continue
+        idx, prod = 0, 1
+        for a in _axes_of(entry):                      # major axis first
+            idx = idx * mesh.shape[a] + mesh.index(a)
+            prod *= mesh.shape[a]
+        block = dim // prod
+        region.append(slice(idx * block, (idx + 1) * block))
+    return tuple(region)
+
+
+def assemble_shards(blocks: Mapping[Tuple[int, ...], object],
+                    shape: Sequence[int], grid: Sequence[int]):
+    """Stitch a ``{grid coordinate: block}`` map back into the full array
+    (numpy): the host-side inverse of sharding under any spec."""
+    import numpy as np
+
+    shape = tuple(int(s) for s in shape)
+    grid = tuple(int(g) for g in grid)
+    if all(g == 1 for g in grid):
+        return np.asarray(blocks[(0,) * len(shape) if shape else ()])
+    sample = next(iter(blocks.values()))
+    full = np.empty(shape, dtype=np.asarray(sample).dtype)
+    for coord, blk in blocks.items():
+        blk = np.asarray(blk)
+        slices = tuple(slice(c * (dim // g), (c + 1) * (dim // g))
+                       for c, dim, g in zip(coord, shape, grid))
+        if blk.shape != tuple(dim // g for dim, g in zip(shape, grid)):
+            raise ValueError(f"shard block {blk.shape} does not tile "
+                             f"{shape} on grid {grid}")
+        full[slices] = blk
+    return full
+
+
+def assemble_region(blocks: Mapping[Tuple[int, ...], object],
+                    shape: Sequence[int], grid: Sequence[int],
+                    region: Sequence[slice]):
+    """Stitch only the sub-array at ``region`` (per-dim global slices; None
+    bounds mean the whole dim, trailing dims may be left out) from the
+    ``{grid coordinate: block}`` map, reading only the blocks it overlaps:
+    ``blocks`` needs only ``__getitem__``, so a lazy mapping defers reading
+    the others."""
+    import numpy as np
+
+    shape = tuple(int(s) for s in shape)
+    grid = tuple(int(g) for g in grid)
+    if not shape:
+        return np.asarray(blocks[()])
+    region = tuple(region) + (slice(None),) * (len(shape) - len(region))
+    bounds = []
+    for dim, sl in zip(shape, region):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = dim if sl.stop is None else int(sl.stop)
+        bounds.append((max(start, 0), min(stop, dim)))
+    out_shape = tuple(max(e - s, 0) for s, e in bounds)
+    block_dims = tuple(d // g for d, g in zip(shape, grid))
+    if 0 in out_shape:
+        probe = np.asarray(blocks[(0,) * len(shape)])
+        return np.empty(out_shape, dtype=probe.dtype)
+    lo = tuple(s // b for (s, _), b in zip(bounds, block_dims))
+    hi = tuple((e - 1) // b for (_, e), b in zip(bounds, block_dims))
+    out = None
+    for offset in np.ndindex(*[h - l + 1 for l, h in zip(lo, hi)]):
+        coord = tuple(l + o for l, o in zip(lo, offset))
+        blk = np.asarray(blocks[coord])
+        if blk.shape != block_dims:
+            raise ValueError(f"shard block {blk.shape} does not tile "
+                             f"{shape} on grid {grid}")
+        if out is None:
+            out = np.empty(out_shape, dtype=blk.dtype)
+        src, dst = [], []
+        for (s, e), c, b in zip(bounds, coord, block_dims):
+            gs = c * b
+            is_, ie = max(s, gs), min(e, gs + b)
+            src.append(slice(is_ - gs, ie - gs))
+            dst.append(slice(is_ - s, ie - s))
+        out[tuple(dst)] = blk[tuple(src)]
+    return out
 
 
 # ---------------------------------------------------------------------------

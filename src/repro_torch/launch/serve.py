@@ -36,8 +36,12 @@ plus ``device``, ``param_count`` (the config's, as the reference counts it),
 encoder-decoder; a sharded run adds ``pool`` and ``ranks``, one entry per
 rank: its rows, peak memory, the weights' and caches' bytes it holds beside
 the reference's spec bytes, decode ms a step, and its kernel launches over
-the decode loop, flash attention's by design. ``--trace-dir`` is not
-ported yet.
+the decode loop, flash attention's by design. ``--trace-dir DIR`` records
+the decode loop's spans (``prefill``, ``decode``, one ``decode_step`` a
+generated token; each rank its own on a sharded run) and writes
+``DIR/trace.jsonl`` (rank 0's, in the reference's schema, with the
+metrics) and ``DIR/trace_chrome.json`` (every rank, each its own pid); the
+report gains ``trace``.
 """
 from __future__ import annotations
 
@@ -78,6 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cpu runs the plain "
                          "PyTorch versions of the kernels)")
+    ap.add_argument("--trace-dir", default="",
+                    help="record prefill/decode spans and write trace.jsonl + "
+                         "trace_chrome.json here; empty (default) keeps the "
+                         "zero-overhead disabled recorder")
     ap.add_argument("--dry-run", action="store_true",
                     help="print the serving plan as JSON and exit")
     return ap
@@ -137,6 +145,8 @@ def serve_rank(ctx, cfg, args, params=None, keep_logits: bool = False,
     from repro_torch.dist.sharding import batch_pspec, manual_mode, shard_of_full
     from repro_torch.models import model as MD
     from repro_torch.models.convert import params_from_jax
+    from repro_torch.obs import Recorder
+    from repro_torch.obs.export import recorded
     from repro_torch.train import serve as TS
 
     device, mesh = ctx.device, ctx.mesh
@@ -161,10 +171,11 @@ def serve_rank(ctx, cfg, args, params=None, keep_logits: bool = False,
         with manual_mode(mesh):
             enc_kv, t_encode = _encode(local, cfg, frames, device)
             probes.reset_launches()
+            rec = Recorder(enabled=bool(getattr(args, "trace_dir", "")))
             out = TS.decode_loop(local, cfg, caches, prompt, args.gen, enc_kv=enc_kv,
                                  axes=plan.axes, keep_logits=keep_logits,
                                  forced=None if forced is None
-                                 else forced[rows].to(device))
+                                 else forced[rows].to(device), rec=rec)
             launches = probes.launch_snapshot()
     steps = S + args.gen
     res = {"rank": ctx.rank, "device": device_name(device), "rows": rows.tolist(),
@@ -177,6 +188,7 @@ def serve_rank(ctx, cfg, args, params=None, keep_logits: bool = False,
            "decode_steps": steps, "launches": launches,
            "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
+           "trace": recorded(rec),
            **TS.placement_bytes(cfg, plan, mesh, args.strategy, B, cap, dtype)}
     del local, caches, enc_kv, out
     if device.type == "cuda":
@@ -225,7 +237,35 @@ def _sharded(args, cfg, device, mesh, pool, keep_logits, forced):
     extra = {"pool": {"ranks": mesh_size(mesh), "backend": backend,
                       "cards": 1 if device.type == "cuda" else 0},
              "ranks": per_rank}
-    return extra, tokens, logits, step_logits, ranks[0]
+    traces = {r["rank"]: r["trace"] for r in ranks}
+    return extra, tokens, logits, step_logits, ranks[0], traces
+
+
+def _write_trace(args, cfg, n_dev, B, t_prefill, t_decode, rec0, traces):
+    """The reference's serve metrics and the two trace files; the report's
+    ``trace``."""
+    import os
+
+    from repro_torch.obs import Metrics, write_chrome_trace, write_jsonl
+    from repro_torch.obs.export import write_chrome_trace_ranks
+    metrics = Metrics()
+    metrics.gauge("prefill_ms").set(t_prefill * 1e3)
+    metrics.gauge("decode_tok_per_s").set(B * args.gen / max(t_decode, 1e-9))
+    for s in rec0.find("decode_step"):
+        metrics.histogram("decode_dispatch_ms").observe(s.duration_s * 1e3)
+    os.makedirs(args.trace_dir, exist_ok=True)
+    write_jsonl(os.path.join(args.trace_dir, "trace.jsonl"), rec0,
+                metrics=metrics.to_dict(),
+                meta={"arch": cfg.name, "mode": "serve",
+                      "strategy": args.strategy or None, "devices": n_dev,
+                      "ranks": 1 if traces is None else len(traces),
+                      "chrome_pid": 1 if traces is None else "rank"})
+    chrome = os.path.join(args.trace_dir, "trace_chrome.json")
+    if traces is None:
+        write_chrome_trace(chrome, rec0)
+    else:
+        write_chrome_trace_ranks(chrome, traces)
+    return {"dir": args.trace_dir, "spans": len(rec0.spans)}
 
 
 def main(argv=None, pool=None, keep_logits: bool = False,
@@ -241,6 +281,7 @@ def main(argv=None, pool=None, keep_logits: bool = False,
     from repro_torch import resolve_device
     from repro_torch.launch.mesh import plan_remesh
     from repro_torch.models import model as MD
+    from repro_torch.obs import Recorder
     from repro_torch.train import serve as TS
     from repro_torch.tree import tree_size
 
@@ -268,9 +309,11 @@ def main(argv=None, pool=None, keep_logits: bool = False,
         return None
 
     extra, t_encode = {}, None
+    rec = Recorder(enabled=bool(args.trace_dir))
     if sharded:
-        extra, tokens, logits, step_logits, r0 = _sharded(args, cfg, device, mesh,
-                                                          pool, keep_logits, forced)
+        extra, tokens, logits, step_logits, r0, traces = _sharded(
+            args, cfg, device, mesh, pool, keep_logits, forced)
+        rec0 = traces[0]
         t_prefill, t_decode, t_encode = r0["prefill_s"], r0["decode_s"], r0["encode_s"]
         n_tree = tree_size(MD.param_shapes(cfg))
         B, S = args.batch, args.prompt_len
@@ -284,7 +327,9 @@ def main(argv=None, pool=None, keep_logits: bool = False,
             enc_kv, t_encode = _encode(params, cfg, frames, device)
             out = TS.decode_loop(params, cfg, caches, prompt, args.gen, enc_kv=enc_kv,
                                  keep_logits=keep_logits,
-                                 forced=None if forced is None else forced.to(device))
+                                 forced=None if forced is None else forced.to(device),
+                                 rec=rec)
+        rec0, traces = rec, None
         tokens, logits, step_logits = out.tokens, out.logits, out.step_logits
         t_prefill, t_decode = out.prefill_s, out.decode_s
 
@@ -300,6 +345,9 @@ def main(argv=None, pool=None, keep_logits: bool = False,
     }
     if t_encode is not None:
         report["encode_s"] = round(t_encode, 3)
+    if rec.enabled:
+        report["trace"] = _write_trace(args, cfg, n_dev, B, t_prefill, t_decode, rec0,
+                                       traces)
     print(json.dumps(report))
     return Served(report, tokens, logits, step_logits)
 

@@ -171,8 +171,8 @@ def top_k(preds: Sequence[Prediction], k: int, *,
 @dataclass(frozen=True)
 class RestartCosts:
     """Per-recovery cost terms (ms), the defaults measured by the
-    reference's elastic drill (not on the card: the port has no recovery
-    path yet).
+    reference's elastic drill (``python -m repro_torch.launch.elastic``
+    measures the port's own).
 
     ``compile_ms`` is the exposed (re-)compile at recovery: the ~2.7 s
     re-jit tail cold, near zero when survivor meshes were pre-compiled

@@ -105,7 +105,7 @@ def _sync(device: torch.device) -> None:
 def decode_loop(params, cfg: ModelConfig, caches, prompt: torch.Tensor,
                 n_gen: int, *, enc_kv=None, axes=None,
                 keep_logits: bool = False,
-                forced: Optional[torch.Tensor] = None) -> Decoded:
+                forced: Optional[torch.Tensor] = None, rec=None) -> Decoded:
     """Prefill-by-decode over ``prompt`` [B, S], then ``n_gen`` greedy
     tokens, each the argmax of the bf16 logits (``MD.logits_fn``), the
     caches updated in place. ``axes``: the sharded server's markers (call
@@ -113,9 +113,14 @@ def decode_loop(params, cfg: ModelConfig, caches, prompt: torch.Tensor,
     in place of the argmax picks (teacher forcing, to hold every step's
     logits to another run's); the returned tokens stay the picks. Times on
     the host clock, the device synchronised at the ends of the prefill and
-    of the generation."""
+    of the generation. ``rec`` (an ``obs.Recorder``) records a ``prefill``
+    span, a ``decode`` span and one ``decode_step`` span a generated token
+    (the host's dispatch of the step: the loop adds no synchronise)."""
+    from repro_torch.obs.trace import NULL_SPAN
     device = prompt.device
     S = prompt.shape[1]
+    B = prompt.shape[0]
+    span = (lambda *a, **k: NULL_SPAN) if rec is None else rec.span
 
     def step(tok, pos):
         h = MD.decode_hidden(params, cfg, caches, tok, pos, enc_kv=enc_kv, axes=axes)
@@ -124,20 +129,23 @@ def decode_loop(params, cfg: ModelConfig, caches, prompt: torch.Tensor,
 
     _sync(device)
     t0 = time.perf_counter()
-    for pos in range(S):
-        lf, logits = step(prompt[:, pos:pos + 1], pos)
-    _sync(device)
+    with span("prefill", category="serve", batch=B, tokens=S):
+        for pos in range(S):
+            lf, logits = step(prompt[:, pos:pos + 1], pos)
+        _sync(device)              # the span times the loop's own synchronise
     prefill_s = time.perf_counter() - t0
     kept, out = [lf], []
     tok = torch.argmax(logits, dim=-1)[:, None]
     t0 = time.perf_counter()
-    for i in range(n_gen):
-        out.append(tok)
-        lf, logits = step(tok if forced is None else forced[:, i:i + 1], S + i)
-        if keep_logits and i + 1 < n_gen:
-            kept.append(lf)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-    _sync(device)
+    with span("decode", category="serve", batch=B, tokens=n_gen):
+        for i in range(n_gen):
+            out.append(tok)
+            with span("decode_step", category="serve", step_num=i):
+                lf, logits = step(tok if forced is None else forced[:, i:i + 1], S + i)
+                if keep_logits and i + 1 < n_gen:
+                    kept.append(lf)
+                tok = torch.argmax(logits, dim=-1)[:, None]
+        _sync(device)
     return Decoded(torch.cat(out, dim=1), logits, kept, prefill_s,
                    time.perf_counter() - t0)
 

@@ -139,3 +139,44 @@ def gspmd_steps(ctx, cfg, tcfg, strategy, tree, batches, microbatches=1):
     return {"losses": losses, "grad_norm": gnorms,
             "state": parts if ctx.rank == 0 else None,
             "transient_bytes": step.transient_bytes}
+
+
+def ckpt_save_sharded(ctx, directory, cfg, tcfg, strategy, steps, batch):
+    """This rank's sharded-path state after ``steps`` steps from seed 0 (so
+    the moments are not zero), saved through ``save_sharded`` as
+    ``launch.train`` lays it out (step ``steps``)."""
+    from repro_torch.launch.specs import batch_shardings
+    from repro_torch.launch.train import _ckpt_layout, _ckpt_view
+    from repro_torch.train import step as TS
+    from repro_torch.train.checkpoint import CheckpointManager
+    mesh = ctx.mesh
+    state = TS.init_sharded_train_state(cfg, tcfg, mesh, strategy, device="cpu")
+    step = TS.make_sharded_train_step(cfg, tcfg, mesh, strategy)
+    local = batch_shardings({k: torch.from_numpy(v) for k, v in batch.items()}, mesh)
+    for _ in range(steps):
+        state, _ = step(state, local)
+    _, specs = _ckpt_layout(cfg, tcfg, dict(mesh.shape), strategy, "sharded")
+    cm = CheckpointManager(directory, keep=3, async_write=False)
+    cm.save_sharded(steps, _ckpt_view(state, "sharded", mesh), mesh=mesh,
+                    strategy=strategy, specs=specs)
+    return None
+
+
+def ckpt_restore_whole(ctx, directory, cfg, tcfg, strategy):
+    """Restore the latest checkpoint onto this rank's mesh under
+    ``strategy`` (the sharded path's layout), gather every leaf whole and
+    return rank 0's {leaf key: numpy}, the restore mode and the step."""
+    from repro_torch.dist.sharding import gather_to_full
+    from repro_torch.launch.train import _ckpt_layout
+    from repro_torch.train import checkpoint as CK
+    mesh = ctx.mesh
+    skel, specs = _ckpt_layout(cfg, tcfg, dict(mesh.shape), strategy, "sharded")
+    cm = CK.CheckpointManager(directory, keep=3, async_write=False)
+    state, step = cm.restore(skel, shardings=CK.Placement(mesh, specs, ctx.device),
+                             strict=True)
+    whole = {}
+    for path, leaf, spec in CK._walk(state, specs):
+        if isinstance(leaf, torch.Tensor):
+            leaf = gather_to_full(leaf, spec, mesh).numpy()
+        whole[CK._key(path)] = np.asarray(leaf)
+    return whole, cm.last_restore_mode, step
