@@ -4,13 +4,14 @@ plain PyTorch versions.
 
   python3 chip_smoke.py
 
-Phases, by number. They run in the order 1-13, 22 (a), 16-19, then on one
-pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23 (c), 24 (c),
-24 (d); phase 24 (a) and (b) ride on phases 8 and 6. The
-pool starts in the background before phase 16, beside the single-device
-phases 16-19, and phase 14 runs in a process of its own
+Phases, by number. They run in the order 1-13, 22 (a), 25 (a), 16-19, then
+on one pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23 (c),
+24 (c), 24 (d), then 25 (b) and (c); phase 24 (a) and (b) ride on phases 8
+and 6. The pool starts in the background before phase 16, beside the
+single-device phases 16-19, and phase 14 runs in a process of its own
 (``--paper-pipeline``) beside phases 22 (b) to 23; its output is printed
-after phase 23. Any failure ends the run with a non-zero exit code, and a run
+after phase 23. Phase 25's traces run in a process of their own
+(``--dryrun-cells DIR``), started after the build, beside phases 3-24. Any failure ends the run with a non-zero exit code, and a run
 still going after ``WATCHDOG_S`` seconds prints every thread's stack and
 exits non-zero:
 
@@ -258,13 +259,38 @@ exits non-zero:
     0, every step's children within 10 % of it; the table printed. Phase 13
     also times flash attention at phase 23's per-rank decode shapes.
 
+25. the dry-run, the roofline and the step-time predictor: (a)
+    smollm-360m at full width on a mesh of one, phase 8's batch of 8 x 512,
+    remat none, adamw, no codec, traced on fake CUDA tensors by
+    ``launch.dryrun.trace_cell`` in phase 25's process (no kernel launched
+    there), then the same step function run on the card (a warm-up under
+    ``perf.op_analysis.flop_counter``, 2 timed): the real flops equal the
+    traced, the real peak within 10 % of the traced argument + temp bytes,
+    the median step no faster than the roofline's ``t_step``, 32 ``tile``
+    launches a step and nothing else; a bf16 GEMM (8192^3, median of 20)
+    and a 1 GiB device copy each at most 1.05 x ``perf.roofline``'s
+    ``PEAK_FLOPS`` and ``HBM_BW``, and ``HBM_PER_CHIP`` within the card's
+    memory; (b) ``launch.dryrun.run_all`` (a process a cell) on device cuda:
+    smollm-360m, qwen2.5-3b, gemma2-2b and mamba2-370m at full width, at
+    train_4k and decode_32k on the pod mesh (16 x 16, rank 0 of a fake
+    world of 256) and at train_4k on the multipod mesh (2 x 16 x 16, 512):
+    every row OK, collective bytes on every train row, qwen2.5-3b's
+    train_4k flops a rank at least ``model_flops_for`` / 256; each row's
+    bottleneck, t_step and bytes per device printed; (c)
+    ``launch.predict_scaling.main`` on (b)'s 12 rows: the generic model
+    fitted by DE on the card (seeds 0, 1, 2), then the train_4k step of
+    qwen2.5-3b, deepseek-v3-671b and mamba2-370m at 256 and 512 ranks and
+    their straggler thresholds, every number finite and positive.
+
 What keeps the run inside its time (PERF.md §4): one pool of 8 for phases
 15 and 20-24, started and warmed in the background; phase 14 beside phases
 22 (b) to 24; the single-device full-width trainings of smollm-360m (3 steps),
 mamba2, zamba2 and gemma2 (4 steps) where every LM trained 8; phase 20 a
 warm-up and 2 steps where it took 3, and phase 22 (c), on 8 of smollm's
 32 layers (for phase 24's time); one profiled train step where the profiles read 2,
-and mamba2's step profiled once on each SSD design. No gate was dropped.
+and mamba2's step profiled once on each SSD design; phase 25's traces in
+a process of their own beside phases 3-24 (the main process runs only (a)'s
+real steps and (b)'s and (c)'s gates and fit). No gate was dropped.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit, the one before that the kernels' JSON; the last line is
@@ -280,6 +306,7 @@ import faulthandler
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -362,7 +389,10 @@ def stop_children() -> None:
         child.kill()
     for child in CHILDREN:
         if child.poll() is None:
-            child.kill()
+            if getattr(child, "own_session", False):    # its children with it
+                os.killpg(child.pid, 9)
+            else:
+                child.kill()
 
 
 def phase(name: str) -> None:
@@ -2712,6 +2742,312 @@ def attribution_phase(torch, dev, card, pool):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the dry-run, the roofline and the step-time predictor
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCHS = ("smollm-360m", "qwen2.5-3b", "gemma2-2b", "mamba2-370m")
+DRYRUN_SHAPES = ("train_4k", "decode_32k")      # on the pod mesh; train_4k on both
+DRYRUN_CELL_TIMEOUT = 600
+DRYRUN_PEAK_TOL = 0.10       # the real step's peak vs the traced args + temp
+RATE_SLACK = 1.05            # a measured rate vs the roofline's constant
+DRYRUN_TIMED_STEPS = 2       # after one warm-up step
+GEMM_N, GEMM_RUNS, COPY_BYTES = 8192, 20, 2 ** 30
+
+
+class DryrunCellsProcess:
+    """Phase 25's traces in a process of its own (``python3 chip_smoke.py
+    --dryrun-cells DIR``), started after the build: (a)'s cell first, then
+    (b)'s production-mesh cells through ``launch.dryrun.run_all`` (a process
+    a cell), all into DIR. Tracing is host work on a core or two, beside
+    phases 3-24, which leave most of the eight idle. Its cell processes
+    share its session, so that ``stop_children`` ends them with it. Its
+    output goes to a file, printed whole by ``finish``."""
+
+    def __init__(self):
+        print("  phase 25's traces ((a)'s cell, then (b)'s production-mesh cells) start "
+              "in a process of their own beside phases 3-24; its output follows phase "
+              "24", flush=True)
+        self.dir = tempfile.mkdtemp(prefix="dryrun_cells_")
+        self.log = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dryrun-cells", self.dir],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO, start_new_session=True)
+        self.proc.own_session = True
+        CHILDREN.append(self.proc)
+
+    def traced_step(self):
+        """(a)'s trace, once the process has written it."""
+        path = os.path.join(self.dir, DRYRUN_STEP_FILE)
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None:
+                self.finish()
+                fail("phase 25's trace process ended without (a)'s trace")
+            time.sleep(0.5)
+        print(f"  (a)'s trace waited for {time.perf_counter() - t0:.1f} s", flush=True)
+        with open(path) as f:
+            return json.load(f)
+
+    def finish(self):
+        """Wait for it and print its output; fail if it failed. Returns the
+        directory of (b)'s rows."""
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        self.log.seek(0)
+        sys.stdout.write(self.log.read())
+        self.log.close()
+        print(f"  phase 25's trace process ended with code {rc}; waited "
+              f"{time.perf_counter() - t0:.1f} s for it here", flush=True)
+        if rc != 0:
+            fail(f"phase 25's traces failed in their process, exit code {rc}")
+        return self.dir
+
+
+DRYRUN_STEP_FILE = "phase25a.trace"     # not a row: the fit reads *.json
+
+
+def dryrun_step_cell():
+    """(cfg, shape, train config, mesh) of phase 25 (a)'s cell: smollm-360m
+    at full width on a mesh of one (no process group), phase 8's batch of
+    8 x 512, remat none, adamw, no codec."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.sharding import LazyGroups, Mesh
+    return (get_config(TRAIN_ARCH), ShapeConfig("phase8", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            TrainConfig(remat_policy="none"), Mesh({"data": 1, "model": 1}, 0, LazyGroups()))
+
+
+def dryrun_cells_main(outdir: str) -> None:
+    """``python3 chip_smoke.py --dryrun-cells DIR``: phase 25's traces on
+    device ``cuda``. (a)'s cell traced here by ``launch.dryrun.trace_cell``
+    (its fields, op count and the kernel launches during the trace into
+    ``DIR/phase25a.trace``); then (b)'s cells, each in a process of its own
+    by ``launch.dryrun.run_all``: the four archs at train_4k and decode_32k
+    on the pod mesh (16 x 16), then at train_4k on the multipod mesh
+    (2 x 16 x 16)."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch import dryrun as D
+    _, reset_counts, read_counts = launch_counters(FA, Q, SSD)
+    cfg, shape, tcfg, mesh = dryrun_step_cell()
+    reset_counts()
+    t0 = time.perf_counter()
+    fields, _, stats = D.trace_cell(cfg, shape, mesh, tcfg, "fsdp_tp", device="cuda")
+    trace_s = time.perf_counter() - t0
+    traced = {"fields": fields, "n_ops": stats.n_ops, "trace_s": trace_s,
+              "launches": read_counts()}
+    with open(os.path.join(outdir, DRYRUN_STEP_FILE + ".tmp"), "w") as f:
+        json.dump(traced, f)
+    os.replace(os.path.join(outdir, DRYRUN_STEP_FILE + ".tmp"),
+               os.path.join(outdir, DRYRUN_STEP_FILE))
+    print(f"  (a)'s cell traced in {trace_s:.1f} s ({stats.n_ops} ops)", flush=True)
+    t0 = time.perf_counter()
+    D.run_all(outdir, meshes=("pod",), archs=DRYRUN_ARCHS, shapes=DRYRUN_SHAPES,
+              timeout=DRYRUN_CELL_TIMEOUT, device="cuda")
+    D.run_all(outdir, meshes=("multipod",), archs=DRYRUN_ARCHS, shapes=("train_4k",),
+              timeout=DRYRUN_CELL_TIMEOUT, device="cuda")
+    print(f"  {len(DRYRUN_ARCHS) * (len(DRYRUN_SHAPES) + 1)} cells traced in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _median_ms(torch, fn, runs):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dryrun_step_phase(torch, dev, card, env, traced):
+    """Phase 25 (a): one cell traced and then run on the card. ``traced``
+    is ``dryrun_step_cell``'s cell traced on fake CUDA tensors in phase 25's
+    trace process (no kernel launched there); here the same step function
+    (``launch.specs.input_specs``'s) runs on real tensors, a warm-up step
+    under ``flop_counter`` and ``DRYRUN_TIMED_STEPS`` timed. The real flops
+    equal the traced, the real peak is within ``DRYRUN_PEAK_TOL`` of the
+    traced argument + temp bytes, the median step is no faster than the
+    roofline's ``t_step``; then a bf16 GEMM and a device copy against the
+    roofline's constants."""
+    import numpy as np
+
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.perf import roofline as RF
+    from repro_torch.perf.op_analysis import flop_counter
+    from repro_torch.train.step import init_gspmd_train_state
+
+    phase(f"dry-run: {TRAIN_ARCH} train (batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat none, "
+          f"adamw) traced on fake CUDA tensors, then run on the card (phase 25 a)")
+    cfg, shape, tcfg, mesh = dryrun_step_cell()
+    fields = traced["fields"]
+    rf, mem = fields["roofline"], fields["memory"]
+    print(f"  traced in {traced['trace_s']:.1f} s ({traced['n_ops']} ops) in phase 25's "
+          f"process: flops {rf['flops']:.6e}, bytes {rf['hbm_bytes']:.6e}, args "
+          f"{mem['argument_size_in_bytes']} + temp {mem['temp_size_in_bytes']} bytes, "
+          f"launches {traced['launches']}; roofline {rf['bottleneck']} t_step "
+          f"{rf['t_step'] * 1e3:.3f} ms (compute {rf['compute_s'] * 1e3:.3f}, memory "
+          f"{rf['memory_s'] * 1e3:.3f} ms)", flush=True)
+    if any(traced["launches"].values()):
+        fail(f"the dry-run's trace launched kernels: {traced['launches']}")
+
+    step = input_specs(cfg, shape, mesh, tcfg, "fsdp_tp", device=dev).fn
+    state = init_gspmd_train_state(cfg, tcfg, mesh, "fsdp_tp", device=dev)
+    batch = {k: v.to(dev) for k, v in make_batch_for(cfg, TRAIN_BATCH, TRAIN_SEQ).items()}
+    torch.cuda.synchronize()
+    env.reset_counts()
+    with flop_counter() as fc:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for _ in range(DRYRUN_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches, designs = env.read_counts(), env.read_variants()
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    n_steps = 1 + DRYRUN_TIMED_STEPS
+    env.gate_variants("phase 25 (a)'s real steps", designs,
+                      tile=cfg.n_layers * n_steps)
+    if {k: v for k, v in launches.items() if k != "flash_attention" and v}:
+        fail(f"phase 25 (a)'s real steps launched {launches}")
+    traced_mem = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    step_s = statistics.median(times)
+    print(f"  real: flops {real_flops:.6e} (traced {rf['flops']:.6e}); peak {peak} bytes "
+          f"vs traced args + temp {traced_mem} ({peak / traced_mem - 1:+.2%}); median "
+          f"step {step_s * 1e3:.3f} ms = {step_s / rf['t_step']:.2f} x the roofline's "
+          f"t_step {rf['t_step'] * 1e3:.3f} ms; losses {losses}; card {card}", flush=True)
+    if real_flops != rf["flops"]:
+        fail(f"phase 25 (a): the real step's flops {real_flops} != traced {rf['flops']}")
+    if abs(peak - traced_mem) > DRYRUN_PEAK_TOL * traced_mem:
+        fail(f"phase 25 (a): real peak {peak} bytes is not within "
+             f"{DRYRUN_PEAK_TOL:.0%} of the traced {traced_mem}")
+    if not step_s >= rf["t_step"]:
+        fail(f"phase 25 (a): a step took {step_s} s, under the roofline's bound "
+             f"{rf['t_step']} s")
+    if not all(np.isfinite(losses)):
+        fail(f"phase 25 (a): losses {losses}")
+
+    a = torch.randn(GEMM_N, GEMM_N, device=dev, dtype=torch.bfloat16)
+    b = torch.randn(GEMM_N, GEMM_N, device=dev, dtype=torch.bfloat16)
+    gemm_ms = _median_ms(torch, lambda: a @ b, GEMM_RUNS)
+    del a, b
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = _median_ms(torch, lambda: dst.copy_(src), GEMM_RUNS)
+    del src, dst
+    torch.cuda.empty_cache()
+    flops_rate = 2 * GEMM_N ** 3 / (gemm_ms * 1e-3)
+    copy_rate = 2 * COPY_BYTES / (copy_ms * 1e-3)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"  bf16 GEMM {GEMM_N}^3: {gemm_ms:.4f} ms = {flops_rate:.4e} FLOP/s vs "
+          f"PEAK_FLOPS {RF.PEAK_FLOPS:.4e} ({flops_rate / RF.PEAK_FLOPS:.1%}); copy of "
+          f"{COPY_BYTES} bytes: {copy_ms:.4f} ms = {copy_rate:.4e} B/s (read + write) vs "
+          f"HBM_BW {RF.HBM_BW:.4e} ({copy_rate / RF.HBM_BW:.1%}); HBM_PER_CHIP "
+          f"{RF.HBM_PER_CHIP:.4e} vs total_memory {total}; card {card}", flush=True)
+    if flops_rate > RATE_SLACK * RF.PEAK_FLOPS or copy_rate > RATE_SLACK * RF.HBM_BW:
+        fail("phase 25 (a): a measured rate beats the roofline's constant by more "
+             f"than {RATE_SLACK - 1:.0%}")
+    if RF.HBM_PER_CHIP > total:
+        fail(f"phase 25 (a): HBM_PER_CHIP {RF.HBM_PER_CHIP} > the card's {total}")
+    numbers = {"trace_s": traced["trace_s"], "traced_ops": traced["n_ops"],
+               "flops": rf["flops"], "real_flops": real_flops, "hbm_bytes": rf["hbm_bytes"],
+               "argument_bytes": mem["argument_size_in_bytes"],
+               "temp_bytes": mem["temp_size_in_bytes"], "real_peak_bytes": peak,
+               "t_step_s": rf["t_step"], "bottleneck": rf["bottleneck"],
+               "step_s": times, "step_over_t_step": step_s / rf["t_step"],
+               "gemm_ms": gemm_ms, "gemm_flops_per_s": flops_rate,
+               "copy_ms": copy_ms, "copy_bytes_per_s": copy_rate,
+               "total_memory": total}
+    return launches, designs, numbers
+
+
+def dryrun_cells_phase(torch, rows_dir, card):
+    """Phase 25 (b)'s gates on its rows: every cell OK, collective bytes on
+    every train cell, qwen2.5-3b's train_4k flops on 256 ranks at least
+    ``model_flops_for`` / 256; each row's bottleneck, t_step and bytes per
+    device printed."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.perf.roofline import model_flops_for
+    phase("dry-run: the production meshes' cells (phase 25 b, traced in their process)")
+    rows = []
+    for name in sorted(os.listdir(rows_dir)):
+        if name.endswith(".json") and name != "summary.json":
+            with open(os.path.join(rows_dir, name)) as f:
+                rows.append(json.load(f))
+    want = len(DRYRUN_ARCHS) * (len(DRYRUN_SHAPES) + 1)
+    if len(rows) != want:
+        fail(f"phase 25 (b): {len(rows)} rows, expected {want}")
+    for row in rows:
+        what = f"{row['arch']} {row['shape']} {row['mesh']}"
+        if row.get("status") != "OK":
+            fail(f"phase 25 (b): {what} is {row.get('status')}: "
+                 f"{str(row.get('error', row.get('reason')))[-1500:]}")
+        rf = row["roofline"]
+        print(f"  {what:36s} {rf['bottleneck']:10s} t_step {rf['t_step']:.6e} s "
+              f"(compute {rf['compute_s']:.3e}, memory {rf['memory_s']:.3e}, collective "
+              f"{rf['collective_s']:.3e}); bytes/device {row['bytes_per_device']}; traced "
+              f"in {row['lower_s']} s; collectives {row['collective_counts']}", flush=True)
+        if row["shape"] == "train_4k" and not rf["collective_bytes"] > 0:
+            fail(f"phase 25 (b): {what} records no collective bytes")
+        if (row["arch"], row["shape"], row["mesh"]) == ("qwen2.5-3b", "train_4k", "pod"):
+            floor = model_flops_for(get_config(row["arch"]), get_shape("train_4k")) / 256
+            print(f"  qwen2.5-3b train_4k flops per rank {rf['flops']:.6e} vs "
+                  f"model_flops_for / 256 = {floor:.6e}", flush=True)
+            if not rf["flops"] >= floor:
+                fail(f"phase 25 (b): qwen2.5-3b train_4k flops {rf['flops']} < {floor}")
+    print(f"  card {card}", flush=True)
+    keep = ("bottleneck", "t_step", "flops", "hbm_bytes", "collective_bytes")
+    return {f"{r['arch']}/{r['shape']}/{r['mesh']}": {
+        **{k: r["roofline"][k] for k in keep},
+        "bytes_per_device": r["bytes_per_device"], "lower_s": r["lower_s"]}
+        for r in rows}
+
+
+def predictor_phase(torch, rows_dir, card):
+    """Phase 25 (c): ``launch.predict_scaling.main`` on (b)'s 12 rows: the
+    generic model fitted by DE on the card (seeds 0, 1, 2), then
+    qwen2.5-3b's, deepseek-v3-671b's and mamba2-370m's train_4k at 256 and
+    512 ranks and their straggler thresholds, each finite and positive."""
+    import numpy as np
+
+    from repro_torch.core.predictor import dryrun_samples
+    from repro_torch.launch import predict_scaling
+    phase("step-time predictor: launch.predict_scaling on phase 25 (b)'s rows, the fit "
+          "on the card (phase 25 c)")
+    n = len(dryrun_samples(rows_dir)[0])
+    t0 = time.perf_counter()
+    out = predict_scaling.main(["--results-dir", rows_dir, "--device", "cuda"])
+    fit_s = time.perf_counter() - t0
+    values = [out["train_mape"]] + [t for v in out["archs"].values() for t in v.values()]
+    print(f"  {n} rows; fit and predictions in {fit_s:.1f} s; card {card}", flush=True)
+    if n != len(DRYRUN_ARCHS) * (len(DRYRUN_SHAPES) + 1):
+        fail(f"phase 25 (c): the fit read {n} rows")
+    if not (all(np.isfinite(values)) and all(v > 0 for v in values)
+            and np.isfinite(out["q_chips"])):
+        fail(f"phase 25 (c): the fit or a prediction is not finite and positive: {out}")
+    return {**out, "rows": n, "fit_s": fit_s}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2791,6 +3127,7 @@ def main() -> None:
                                            "build_s")):
                     print("    " + line.strip())
     ptxas = dict(kv for lib in libs for kv in ptxas_usage(lib + ".log").items())
+    cells = DryrunCellsProcess()       # phase 25's traces, beside phases 3-24
 
     # ---- 3. flash attention against plain -------------------------------
     phase("flash_attention kernel vs plain version")
@@ -3911,6 +4248,10 @@ def main() -> None:
     opening = OpeningPool(SHARDED_WORLD, dev)
     paper = []              # phase 14's process, started after phase 15
 
+    # ---- 25 (a). one cell traced, then run on the card -------------------------
+    dry_counts, dry_designs, dry_numbers = dryrun_step_phase(torch, dev, card, env,
+                                                             cells.traced_step())
+
     # ---- 16. gemma2-2b, 17. whisper-tiny ----------------------------------------
     def lm_paths(*results):
         for result in results:
@@ -3966,6 +4307,12 @@ def main() -> None:
           "14, run in a process of its own beside phases 22 (b) to 23)")
     paper[0].finish()
     sharded_lm_counts, (rq, rkv), sharded_lm_numbers, later = sharded_lm_out
+
+    # ---- 25 (b). the production meshes' cells; 25 (c). the predictor on them ----
+    rows_dir = cells.finish()
+    cells_numbers = dryrun_cells_phase(torch, rows_dir, card)
+    predictor_numbers = predictor_phase(torch, rows_dir, card)
+    shutil.rmtree(rows_dir, ignore_errors=True)
     ((arch_counts, arch_rows), (auto_counts, auto_numbers),
      (serve_counts, serve_designs, serve_numbers), (gspmd_counts, gspmd_numbers),
      (drill_counts, drill_designs, drill_numbers), attribution_numbers) = later
@@ -4010,6 +4357,9 @@ def main() -> None:
     phase24 = {"traced_train": TRACED.get("train"), "traced_serve": TRACED.get("serve"),
                "failure_drill": drill_numbers, "attribution": attribution_numbers}
     print(f"  phase 24 numbers: {json.dumps(phase24)}", flush=True)
+    phase25 = {"real_step": dry_numbers, "cells": cells_numbers,
+               "predictor": predictor_numbers}
+    print(f"  phase 25 numbers: {json.dumps(phase25)}", flush=True)
 
     paths = {**{k: lm_counts.pop(k) for k in ("serve", "train")},
              "mamba2_serve": mserve_counts, "mamba2_train": mtrain_counts,
@@ -4022,7 +4372,8 @@ def main() -> None:
              "sharded_serve": {k: serve_counts.get(k, 0) for k in counters},
              "sharded_serve_fp32": {k: fp32_counts.get(k, 0) for k in counters},
              "gspmd_train": {k: gspmd_counts.get(k, 0) for k in counters},
-             "failure_drill": {k: drill_counts.get(k, 0) for k in counters}}
+             "failure_drill": {k: drill_counts.get(k, 0) for k in counters},
+             "dryrun_real_step": {k: dry_counts.get(k, 0) for k in counters}}
 
     def by_path(name):
         return {k: c[name] for k, c in paths.items()}
@@ -4039,7 +4390,8 @@ def main() -> None:
                                "mamba2_train": mtrain_variants, **lm_designs,
                                "sharded_serve": serve_designs,
                                "sharded_serve_fp32": fp32_designs,
-                               "failure_drill": drill_designs},
+                               "failure_drill": drill_designs,
+                               "dryrun_real_step": dry_designs},
         "max_abs_err": path_err,
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
@@ -4099,6 +4451,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:] == ["--paper-pipeline"]:
             paper_pipeline_main()
+        elif sys.argv[1:2] == ["--dryrun-cells"] and len(sys.argv) == 3:
+            dryrun_cells_main(sys.argv[2])
         else:
             main()
     finally:

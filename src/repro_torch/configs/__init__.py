@@ -1,11 +1,16 @@
 """Config registry: ``get_config(arch_id)`` for every arch of the
-reference's registry (``repro.configs``), in its order."""
+reference's registry (``repro.configs``), in its order; the dry-run's input
+shapes (``get_shape``) and which (arch × shape) cells apply
+(``cell_is_runnable``)."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import ModelConfig, TrainConfig, reduced
+from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
+                                      PREFILL_32K, TRAIN_4K, MeshConfig,
+                                      ModelConfig, ShapeConfig, TrainConfig,
+                                      reduced)
 
 _REGISTRY: Dict[str, str] = {
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
@@ -29,4 +34,24 @@ def get_config(arch_id: str) -> ModelConfig:
     return importlib.import_module(_REGISTRY[arch_id]).CONFIG
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "TrainConfig", "get_config", "reduced"]
+def get_shape(shape_id: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == shape_id:
+            return s
+    raise KeyError(f"unknown shape {shape_id!r}")
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch × shape) cell of the dry-run applies: a
+    full-attention arch does not decode 500k tokens."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic():
+        return False, ("full-attention arch: 500k-token decode is quadratic "
+                       "in cache reads per token and exceeds the KV budget; "
+                       "skipped per assignment (see DESIGN.md)")
+    return True, ""
+
+
+__all__ = ["ALL_SHAPES", "ARCH_IDS", "MeshConfig", "ModelConfig",
+           "ShapeConfig", "TrainConfig", "TRAIN_4K", "PREFILL_32K",
+           "DECODE_32K", "LONG_500K", "get_config", "get_shape",
+           "cell_is_runnable", "reduced"]

@@ -1,9 +1,9 @@
-"""Configuration dataclasses (copy of ``repro.configs.base``, the model and
-training parts).
+"""Configuration dataclasses (copy of ``repro.configs.base``).
 
-``ModelConfig``, ``TrainConfig`` and ``reduced`` are kept field for field,
-so a config of the port and one of the reference compare equal as dicts and
-``param_count`` gives the same number.
+``ModelConfig``, ``ShapeConfig``, ``MeshConfig``, ``TrainConfig`` and
+``reduced`` are kept field for field, so a config of the port and one of
+the reference compare equal as dicts and ``param_count`` gives the same
+number; the four input shapes of the dry-run's cells are the reference's.
 """
 from __future__ import annotations
 
@@ -122,6 +122,12 @@ class ModelConfig:
                 ATTN_LOCAL if i % 2 == 0 else ATTN for i in range(self.n_layers))
         return (ATTN,) * self.n_layers
 
+    def is_subquadratic(self) -> bool:
+        """True if the arch can serve 500k-token contexts (sub-quadratic)."""
+        kinds = self.layer_kinds()
+        return all(k in (SSM, SHARED_ATTN) for k in kinds) or (
+            self.family in ("ssm", "hybrid"))
+
     def param_count(self, active_only: bool = False) -> int:
         """Total (or active-per-token) parameter count, embedding included."""
         d, h = self.d_model, self.get_head_dim()
@@ -181,6 +187,37 @@ class ModelConfig:
         if self.shared_attn_every:
             total += attn_params() + dense_mlp(self.d_ff)
         return int(total)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry-run."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                      # train | prefill | decode
+    microbatches: int = 1          # gradient-accumulation splits (train only)
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Physical mesh description for the launcher."""
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,7 @@ Submodules:
   fit           — fitting pipeline: multi-seed, torch or scipy backend
   baselines     — black-box comparators (Random Forest, ε-SVR), numpy
   interpret     — paper-style tables (2/3/6) and scaling analysis
+  predictor     — the model fitted to dry-run cells as launcher hooks
 """
 from repro_torch.core.de import differential_evolution_torch
 from repro_torch.core.fit import FitResult, fit_model

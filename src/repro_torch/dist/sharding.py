@@ -5,14 +5,17 @@ resolution (``BATCH_AXES``, ``axis_sizes``, ``logical_to_pspec``,
 ``param_pspecs``, ``batch_pspec``, ``spec_to_json``), the block arithmetic
 of sharded checkpoints (``spec_from_json``, ``shard_grid``,
 ``shard_coord``, ``assemble_shards``, ``assemble_region``, copied, and
-``shard_region``), and a mesh of
-``torch.distributed`` process groups with the helpers of the manual
+``shard_region``), the activation constraints (``BATCH``,
+``resolve_constraint``, ``maybe_constrain``) and ``param_shardings``, and a
+mesh of ``torch.distributed`` process groups with the helpers of the manual
 (shard_map) paths: ``Mesh``, ``spec_entries``, ``gather_to_full``,
 ``shard_of_full``, ``manual_mode`` (the mesh the layer code's Megatron
 collectives run over, and the overlap step's streaming context) and
 ``stream_gather`` (a per-layer all-gather whose backward is the compressed
-reduce-scatter). The cost model
-(``repro_torch.perf.costmodel``) prices the collective descriptions.
+reduce-scatter). Every eager collective of the port ends in ``_waited``,
+which ``record_collectives`` listens at (the dry-run's collective terms).
+The cost model (``repro_torch.perf.costmodel``) prices the collective
+descriptions.
 
 The reference resolves each parameter's logical axes, in its own layout
 (dense kernels ``[d_in, d_out]``, every segment leaf stacked on a leading
@@ -30,7 +33,7 @@ from __future__ import annotations
 import itertools
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -143,6 +146,15 @@ if set(STRATEGY_COLLECTIVES) != set(STRATEGIES):
 # Logical axes -> specs
 # ---------------------------------------------------------------------------
 
+class _BatchSentinel:
+    """Logical marker for 'the batch dimension' in activation constraints."""
+
+    def __repr__(self):
+        return "BATCH"
+
+
+BATCH = _BatchSentinel()
+
 # Mesh axes that carry the batch, outermost first.
 BATCH_AXES = ("pod", "data")
 
@@ -215,6 +227,19 @@ def param_pspecs(params, mesh, strategy: Union[str, Strategy]):
                     params, param_axes(params))
 
 
+class NamedSharding(NamedTuple):
+    """A spec on a mesh: the reference's ``jax.sharding.NamedSharding``."""
+    mesh: object
+    spec: Tuple
+
+
+def param_shardings(params, mesh, strategy: Union[str, Strategy]):
+    """``param_pspecs``, each spec paired with ``mesh``."""
+    from repro_torch.tree import tree_map
+    return tree_map(lambda p, spec: NamedSharding(mesh, spec), params,
+                    param_pspecs(params, mesh, strategy))
+
+
 def _batch_entry(sizes: Mapping[str, int], used: set, dim: Optional[int]):
     """Greedy (pod, data) batch sharding honouring divisibility (the
     reference's ``_batch_entry``)."""
@@ -236,6 +261,43 @@ def batch_pspec(mesh, ndim: int = 1, batch_size: Optional[int] = None) -> Tuple:
     """The spec sharding dim 0 over the mesh's batch axes."""
     entry = _batch_entry(axis_sizes(mesh), set(), batch_size)
     return (entry,) + (None,) * (ndim - 1)
+
+
+def resolve_constraint(shape: Sequence[int], entries: Sequence, mesh) -> Tuple:
+    """The spec the reference's ``maybe_constrain(x, *entries)`` puts on an
+    array of ``shape`` under ``mesh``: ``entries`` align with the leading
+    dims (missing trailing entries mean replicated); each is None, ``BATCH``
+    (the mesh's pod/data axes that divide the dim, greedily), a mesh-axis
+    name or a tuple of names. Axes absent from the mesh, already used by an
+    earlier dim, or not dividing the dim are dropped."""
+    sizes = axis_sizes(mesh)
+    used: set = set()
+    padded = tuple(entries) + (None,) * (len(shape) - len(entries))
+    resolved = []
+    for dim, e in zip(shape, padded):
+        dim = int(dim)
+        if e is None:
+            resolved.append(None)
+            continue
+        if isinstance(e, _BatchSentinel):
+            entry = _batch_entry(sizes, used, dim)
+        else:
+            cand_axes = _axes_of(e)
+            ok = _fits(cand_axes, sizes, used, dim)
+            entry = ((cand_axes if len(cand_axes) > 1 else cand_axes[0])
+                     if ok else None)
+        if entry is not None:
+            used.update(_axes_of(entry))
+        resolved.append(entry)
+    return _trim(resolved)
+
+
+def maybe_constrain(x: torch.Tensor, *entries) -> torch.Tensor:
+    """``x`` itself. The reference puts ``resolve_constraint``'s spec on
+    ``x`` inside a GSPMD program; every program of the port is manual (a
+    rank computes on its own slices, each collective written out), where
+    the reference's ``maybe_constrain`` is the identity too."""
+    return x
 
 
 def spec_to_json(spec) -> list:
@@ -438,6 +500,21 @@ def _group_ranks(shape: Mapping[str, int], axes: Sequence[str],
     return tuple(sorted(out))
 
 
+class LazyGroups(dict):
+    """A ``Mesh``'s groups made as the rank first asks for each: for a
+    traced rank of a world on the ``"fake"`` backend (the dry-run), where
+    making every group of a 512-rank mesh up front would make hundreds the
+    rank never uses. ``new_group`` needs a world: without one, asking for a
+    group of more than one rank raises."""
+
+    def __missing__(self, ranks):
+        if not dist.is_initialized():
+            raise RuntimeError(f"the group {ranks} needs a torch.distributed "
+                               "world, and none is initialised")
+        group = self[ranks] = dist.new_group(list(ranks))
+        return group
+
+
 def make_groups(axes: Mapping[str, int],
                 groups: Dict[Tuple[int, ...], dist.ProcessGroup]) -> None:
     """Make every process group a ``Mesh`` of ``axes`` can ask for (each
@@ -467,16 +544,58 @@ def _axes_of(entry) -> Tuple[str, ...]:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
-def _waited(t: torch.Tensor) -> torch.Tensor:
+class CollectiveRecord(NamedTuple):
+    """One collective a rank issued: its kind (the reference's HLO names:
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all"), the ranks
+    of its group and its bytes under the reference's rule
+    (``repro.perf.hlo_analysis``): max(operand, output) bytes, times 2 for
+    an all-reduce (a ring's reduce-scatter and all-gather) and 1
+    otherwise."""
+    kind: str
+    group_size: int
+    bytes: float
+
+
+_RECORDERS: List[List[CollectiveRecord]] = []
+
+
+@contextmanager
+def record_collectives():
+    """A list that every eager collective issued inside appends its
+    ``CollectiveRecord`` to (nested recorders each get every record).
+    ``shard_of_full`` is a view and moves nothing, so it records nothing."""
+    log: List[CollectiveRecord] = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _waited(t: torch.Tensor, kind: Optional[str] = None,
+            operand: Optional[torch.Tensor] = None,
+            group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """A functional collective's result, waited for: eagerly, funcol hands
     back an ``AsyncCollectiveTensor`` whose collective is still in flight
     on gloo's worker threads until an op needs its values (views do not),
     so a result that is dropped, or only viewed, is never waited and its
     work outlives the code that issued it; every eager collective of the
     port ends here instead. Under ``torch.compile`` the traced collective
-    is already a plain tensor with its wait in the graph."""
+    is already a plain tensor with its wait in the graph. With ``kind``,
+    ``operand`` and ``group`` given, the collective is recorded in every
+    open ``record_collectives`` list."""
     if isinstance(t, funcol.AsyncCollectiveTensor):
-        return t.wait()
+        t = t.wait()
+    if _RECORDERS and kind is not None:
+        size = max(_nbytes(operand), _nbytes(t))
+        rec = CollectiveRecord(kind, dist.get_world_size(group),
+                               (2.0 if kind == "all-reduce" else 1.0) * size)
+        for log in _RECORDERS:
+            log.append(rec)
     return t
 
 
@@ -486,7 +605,7 @@ def all_reduce(x: torch.Tensor, op: str,
     ``group``, waited for; ``x`` itself on a single rank (``group`` None)."""
     if group is None:
         return x
-    return _waited(funcol.all_reduce(x, op, group))
+    return _waited(funcol.all_reduce(x, op, group), "all-reduce", x, group)
 
 
 def gather_to_full(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
@@ -506,8 +625,9 @@ def gather_to_full(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
             group = mesh.group(a)
             if group is None:
                 continue
-            block = x.movedim(dim, 0).contiguous()
-            full = _waited(funcol.all_gather_tensor(block.cpu(), 0, group))
+            block = x.movedim(dim, 0).contiguous().cpu()
+            full = _waited(funcol.all_gather_tensor(block, 0, group),
+                           "all-gather", block, group)
             x = full.to(x.device).movedim(0, dim)
     return x
 

@@ -68,18 +68,26 @@ def topk_route(logits: torch.Tensor, e: MoEConfig
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)   # renormalise
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     T = logits.shape[0]
-    counts = torch.bincount(ids.reshape(-1), minlength=e.n_experts).float()
+    counts = expert_counts(ids.reshape(-1), e.n_experts).float()
     f = counts / (T * e.top_k)
     P = probs.mean(dim=0)
     aux = e.n_experts * torch.sum(f * P) * e.aux_loss_weight
     return w, ids, aux
 
 
+def expert_counts(flat_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Slots routed to each expert, [n_experts] int64: ``bincount`` with a
+    shape that does not depend on the ids (a dry-run traces it on fake
+    tensors)."""
+    return torch.zeros(n_experts, dtype=torch.int64, device=flat_ids.device
+                       ).scatter_add_(0, flat_ids, torch.ones_like(flat_ids))
+
+
 def expert_ranks(flat_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
     """rank[i] = the number of earlier slots routed to slot i's expert."""
     n = flat_ids.shape[0]
     order = torch.argsort(flat_ids, stable=True)
-    counts = torch.bincount(flat_ids, minlength=n_experts)
+    counts = expert_counts(flat_ids, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     ranks = torch.empty_like(flat_ids)
     ranks[order] = torch.arange(n, device=flat_ids.device) - starts[flat_ids[order]]

@@ -113,7 +113,7 @@ def _collective(op: str, x, group, device):
         y = funcol.all_to_all_single(host, None, None, group)
     else:
         raise ValueError(f"unknown collective {op!r}")
-    return _waited(y).to(device)
+    return _waited(y, op.replace("_", "-"), host, group).to(device)
 
 
 def _measure_rank(ctx, groups, iters: int, warmup: int):

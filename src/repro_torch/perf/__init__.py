@@ -1,2 +1,3 @@
 """Performance modelling: the collective cost model, the shared prediction
-path, feature specs and the LeNet-5 measured sweep."""
+path, feature specs, the LeNet-5 measured sweep, and a traced step's costs
+(``op_analysis``) and roofline terms (``roofline``)."""

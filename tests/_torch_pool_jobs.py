@@ -180,3 +180,19 @@ def ckpt_restore_whole(ctx, directory, cfg, tcfg, strategy):
             leaf = gather_to_full(leaf, spec, mesh).numpy()
         whole[CK._key(path)] = np.asarray(leaf)
     return whole, cm.last_restore_mode, step
+
+
+def recorded_collectives(ctx, cfg, tcfg, strategy, batch, seq):
+    """The collectives one ``make_gspmd_train_step`` step records on this
+    rank (``dist.sharding.record_collectives``), from the seeded state and
+    batch: (kind, group size, bytes) in the order issued."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.dist.sharding import record_collectives
+    from repro_torch.train.step import init_gspmd_train_state, make_gspmd_train_step
+
+    state = init_gspmd_train_state(cfg, tcfg, ctx.mesh, strategy, device=ctx.device)
+    step = make_gspmd_train_step(cfg, tcfg, ctx.mesh, strategy)
+    b = {k: v.to(ctx.device) for k, v in make_batch_for(cfg, batch, seq).items()}
+    with record_collectives() as log:
+        step(state, b)
+    return [tuple(r) for r in log]

@@ -58,15 +58,12 @@ ARCH_SWEEP_MODULES = ("repro_torch.obs.trace", "repro_torch.perf.planner.space",
 
 
 @functools.lru_cache(maxsize=None)
-def _roots_after_importing_arch_sweep():
+def _roots_after_importing(modules, also):
     """The roots among jax, jaxlib and repro that a fresh interpreter holds
-    after importing the arch sweep's modules and what they import at call
-    time (the step, the fits, the calibration)."""
-    code = ("import sys\n"
-            + "".join(f"import {m}\n" for m in ARCH_SWEEP_MODULES)
-            + "import repro_torch.train.step, repro_torch.core.fit\n"
-              "import repro_torch.perf.costmodel.calibrate\n"
-              "print(sorted({m.split('.')[0] for m in sys.modules}"
+    after importing ``modules`` and ``also`` (what they import at call
+    time)."""
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in modules + also)
+            + "print(sorted({m.split('.')[0] for m in sys.modules}"
               " & {'jax', 'jaxlib', 'repro'}))")
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env={**os.environ, "PYTHONPATH": SRC},
@@ -79,7 +76,30 @@ def test_arch_sweep_modules_import_neither_jax_nor_repro(module):
     them in a fresh interpreter loads no module of jax, jaxlib or repro."""
     path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
     assert path in _port_files()
-    assert _roots_after_importing_arch_sweep() == "[]"
+    # the step, the fits, the calibration
+    assert _roots_after_importing(ARCH_SWEEP_MODULES, (
+        "repro_torch.train.step", "repro_torch.core.fit",
+        "repro_torch.perf.costmodel.calibrate")) == "[]"
+
+
+DRYRUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.perf.roofline",
+                  "repro_torch.perf.op_analysis", "repro_torch.core.predictor",
+                  "repro_torch.launch.predict_scaling", "repro_torch.launch.specs",
+                  "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("module", DRYRUN_MODULES)
+def test_dryrun_modules_import_neither_jax_nor_repro(module):
+    """The dry-run path's modules (dry-run, roofline, op analysis,
+    predictor, predict_scaling, specs, mesh) are among the scanned files,
+    and importing them in a fresh interpreter loads no module of jax,
+    jaxlib or repro."""
+    path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
+    assert path in _port_files()
+    # the step, the serving plan, the fit, the predictions
+    assert _roots_after_importing(DRYRUN_MODULES, (
+        "repro_torch.train.step", "repro_torch.train.serve",
+        "repro_torch.core.fit", "repro_torch.perf.predict")) == "[]"
 
 
 def test_port_has_no_jax_in_sources():
