@@ -23,7 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import mask_bias
 from repro_torch.dist.sharding import axis_group
 from repro_torch.models.layers import (Params, apply_rope, dense, init_dense,
-                                       local_dim, marks, tp_f)
+                                       local_dim, marks, tp_f, tp_probe)
 
 
 class AttnSpec(NamedTuple):
@@ -82,7 +82,7 @@ def gqa_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     if colk is not None:
         nKV //= colk.size
     wo = marks(axes, "wo")
-    q = dense(params["wq"], x).view(B, S, nH, hd)
+    q = tp_probe("attn_q", dense(params["wq"], x).view(B, S, nH, hd))
     if kv_override is not None:
         k, v = kv_override
         kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
@@ -151,8 +151,8 @@ def mla_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
         group = axis_group(col.axis)
         lat_q, kv = tp_f(group, lat_q), tp_f(group, kv)
     q = dense(params["wq_b"], lat_q)
-    q = q.view(B, S, mla_local_heads(cfg, axes),
-               m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = tp_probe("attn_q", q.view(B, S, mla_local_heads(cfg, axes),
+                                  m.qk_nope_head_dim + m.qk_rope_head_dim))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
     latent = kv[..., :m.kv_lora_rank]

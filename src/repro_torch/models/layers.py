@@ -1,7 +1,8 @@
 """Layer primitives over plain dicts of tensors (``repro.models.layers``: the
 dense, MLP, norm, embedding and rope primitives, every activation of
-``activation_fn``, and the Megatron ``tp_f`` / ``tp_g`` pair with the
-``LocalDim`` and ``StreamDim`` markers of the manual sharded paths).
+``activation_fn``, the Megatron ``tp_f`` / ``tp_g`` pair with the
+``LocalDim`` and ``StreamDim`` markers of the manual sharded paths, and the
+``tp_probe`` that records the local shapes those paths compute on).
 
 A dense layer is ``{"weight": [d_out, d_in], "bias": [d_out]}``, the
 ``F.linear`` layout; ``models.convert`` maps the reference's ``[d_in, d_out]``
@@ -19,6 +20,8 @@ d_in]``, so its output dim is entry 0 and its input dim entry -1.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence
 
@@ -215,6 +218,7 @@ def mlp(params: Params, x: torch.Tensor, activation: str,
         h = act(dense(params["gate"], x)) * up
     else:
         h = act(up)
+    h = tp_probe("mlp_hidden", h)
     return dense(params["down"], h, marks(axes, "down"))
 
 
@@ -294,3 +298,33 @@ def tp_g(group: ProcessGroup, x: torch.Tensor) -> torch.Tensor:
     multiplies it by the ring size; the adjoint of "sum the partials" hands
     each rank the cotangent unchanged."""
     return _TpG.apply(x, group)
+
+
+class _TpProbe(threading.local):
+    def __init__(self):
+        self.sink = None
+
+
+_TP_PROBE = _TpProbe()
+
+
+@contextmanager
+def tp_probe_sink(records: list):
+    """Record ``(tag, shape)`` of the probed activations that this thread
+    computes while the context is open (``tools.overlap_smoke`` reads the
+    local hidden shapes of the sharded bodies from it). A compiled region
+    records nothing: the probe is the identity there, so it adds no graph
+    break and no guard."""
+    prev = _TP_PROBE.sink
+    _TP_PROBE.sink = records
+    try:
+        yield records
+    finally:
+        _TP_PROBE.sink = prev
+
+
+def tp_probe(tag: str, x: torch.Tensor) -> torch.Tensor:
+    """The identity on ``x``; appends ``(tag, shape)`` to the open sink."""
+    if not torch.compiler.is_compiling() and _TP_PROBE.sink is not None:
+        _TP_PROBE.sink.append((tag, tuple(x.shape)))
+    return x

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.lenet5 import DATASET_SHAPES, LeNet5Config, N_CLASSES
 from repro_torch.models.layers import (Params, activation_fn, normal_param,
-                                      tp_f, tp_g)
+                                      tp_f, tp_g, tp_probe)
 
 HIDDEN = (120, 84)     # fc1 and fc2 widths
 
@@ -129,7 +129,7 @@ def lenet_forward(params: Params, images: torch.Tensor, cfg: LeNet5Config, *,
     x = x.flatten(1)
     if tp is not None:
         x = tp_f(tp, x)
-    x = act(F.linear(x, params["fc1"]))
+    x = tp_probe("lenet_fc1", act(F.linear(x, params["fc1"])))
     if train and cfg.dropout > 0:
         keep = rng < 1.0 - cfg.dropout
         x = torch.where(keep, x / (1.0 - cfg.dropout), 0.0)

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig, ModelConfig
 from repro_torch.dist.sharding import axis_group, axis_index
 from repro_torch.models.layers import (Params, dense, init_dense, local_dim,
-                                       marks, normal_param, tp_f, tp_g)
+                                       marks, normal_param, tp_f, tp_g,
+                                       tp_probe)
 
 
 class MoEOut(NamedTuple):
@@ -163,7 +164,7 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     if ex is not None:
         e_loc = E // ex.size
         h = h[axis_index(ex.axis) * e_loc:][:e_loc]
-    g = torch.bmm(h, params["w_gate"])
+    g = tp_probe("moe_hidden", torch.bmm(h, params["w_gate"]))
     u = torch.bmm(h, params["w_up"])
     out = torch.bmm(F.silu(g) * u, params["w_down"])
     if ex is not None:

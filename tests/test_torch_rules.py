@@ -102,6 +102,64 @@ def test_dryrun_modules_import_neither_jax_nor_repro(module):
         "repro_torch.core.fit", "repro_torch.perf.predict")) == "[]"
 
 
+A17_MODULES = ("repro_torch.launch.common", "repro_torch.launch.roofline_table",
+               "repro_torch.launch.roofline_fit", "repro_torch.launch.hillclimb",
+               "repro_torch.launch.tables", "repro_torch.launch.run",
+               "repro_torch.launch.overlap", "repro_torch.examples.quickstart",
+               "repro_torch.examples.serve_lm", "repro_torch.examples.train_lm",
+               "repro_torch.tools.arch_smoke", "repro_torch.tools.calibration_smoke",
+               "repro_torch.tools.overlap_smoke")
+
+
+@pytest.mark.parametrize("module", A17_MODULES)
+def test_benchmark_example_and_tool_modules_import_neither_jax_nor_repro(module):
+    """The benchmark drivers, examples and tools are among the scanned
+    files, and importing them (and the fits, baselines and pool they call)
+    in a fresh interpreter loads no module of jax, jaxlib or repro."""
+    path = os.path.join(PORT, *module.split(".")[1:]) + ".py"
+    assert path in _port_files()
+    assert _roots_after_importing(A17_MODULES, (
+        "repro_torch.core.baselines", "repro_torch.core.interpret",
+        "repro_torch.dist.pool", "repro_torch.perf.costmodel")) == "[]"
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("repro_torch.launch.run", ["--only", "table2"]),
+    ("repro_torch.launch.overlap", []),
+    ("repro_torch.examples.quickstart", ["--samples", "30"]),
+    ("repro_torch.examples.serve_lm", ["--gen", "1"]),
+    ("repro_torch.examples.train_lm", ["--steps", "1"]),
+    ("repro_torch.tools.arch_smoke", []),
+    ("repro_torch.tools.calibration_smoke", []),
+    ("repro_torch.tools.overlap_smoke", []),
+])
+def test_benchmark_example_and_tool_entry_points_need_cuda(entry, argv):
+    """Without ``--device`` each runs on the card, so here it raises before
+    any work: no pool is opened, nothing measured or written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would run")
+    import importlib
+    mod = importlib.import_module(entry)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(argv)
+
+
+def test_drivers_default_to_cuda():
+    """The roofline fit, hillclimb's dry-runs and a tables sweep name the
+    card unless told otherwise."""
+    import inspect
+
+    from repro_torch.launch import common, hillclimb, roofline_fit
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert inspect.signature(roofline_fit.roofline_fit).parameters["device"].default \
+        == "cuda"
+    assert hillclimb.variant_cmd("a", "s", "pod", [], "o.json")[-4:-2] == ["--device",
+                                                                         "cuda"]
+    with pytest.raises(RuntimeError, match="cuda"):
+        common.Sweep([])
+
+
 def test_port_has_no_jax_in_sources():
     """No string route to JAX either (``importlib.import_module("jax")``)."""
     for f in _port_files():
