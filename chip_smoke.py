@@ -4,39 +4,48 @@ plain PyTorch versions.
 
   python3 chip_smoke.py
 
-Phases, by number. They run in the order 1-13, 22 (a), 25 (a), 16-19, 26,
+Phases, by number. They run in the order 1-13, 22 (a), 16-19, 26, 25 (a),
 then on one pool of 8 ranks 15, 22 (b), 23 (b), 20, 21, 22 (c), 23 (a), 23
 (c), 24 (c), 24 (d), 27 (d), then 25 (b) and (c) and 27 (a) and (c); phase
 24 (a) and (b) ride on phases 8 and 6. The pool starts in the background
-before phase 16, beside the single-device phases 16-19 and 26, and phase 14
-(then 27 b) runs in a process of its own (``--paper-pipeline``) beside
+before phase 16, beside the single-device phases 16-19, 26 and 25 (a), and
+phase 14 (then 27 b) runs in a process of its own (``--paper-pipeline``) beside
 phases 22 (b) to 23; its output is printed after phase 23. Phase 25's
 traces run in a process of their own (``--dryrun-cells DIR``), started
-after the build, beside phases 3-24, and its fits (25 c, 27 a and c) after
-them there; the main process gates what it wrote. Any failure ends the run with a non-zero exit code, and a run
+after phase 13 (whose SSD backward timing leaves too little of the card for
+a cell's CUDA context), beside phases 22 (a) to 24, and its fits (25 c, 27
+a and c) after them there; the main process gates what it wrote. Any failure ends the run with a non-zero exit code, and a run
 still going after ``WATCHDOG_S`` seconds prints every thread's stack and
 exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    TF32 off for matmuls and cuDNN;
 2. build: compile every kernel source of ``src/repro_torch`` (one ``nvcc``
-   per source, all started together) and print registers and spills;
+   per source, all started together) and print registers and spills; each
+   flash tile and split-KV instantiation (head dims 64, 128, 192, 256) must
+   build without a spill;
 3. flash attention against its plain version on the card, bf16 and fp32,
    over the reference's kernel test cases, the serving path's shapes, the
    training path's shape and cases aimed at each design (the tile kernel's
    ragged tiles, windows, ring positions and wholly masked first rows; the
    split-KV kernel's half-empty ring, ragged and empty last splits and a
    wholly masked row over 4096 slots), gemma2-2b's shapes (head_dim 256 on
-   the CUDA-core design: its training shape and decode with window 4096 and
-   softcap 50, a prefill where the window bites, a 4096-slot ring holding
-   positions past the window), whisper-tiny's (its 1500-frame non-causal
+   the tile and split-KV designs: its training shape, decode and the served
+   prefill with window 4096 and softcap 50, a prefill where the window
+   bites, a 4096-slot ring
+   holding positions past the window), cases aimed at those designs at
+   head_dims 256 and 192 (ragged tiles under a window and softcap, rings
+   with PAD slots, wholly masked first rows, split-KV at 192 with and
+   without a combine), whisper-tiny's (its 1500-frame non-causal
    encoder, the cross-attention over it at prefill and decode),
    zamba2-1.2b's shared block (training and prefill: tile; decode:
    split-KV), llama4-scout's training and prefill (tile, G 5) and decode
    (split-KV), deepseek-v3's MLA prefill (qk dim 192, v zero-padded: the
-   CUDA-core design) and the ``--reduced`` deepseek and internvl2 runs'
+   tile design) and the ``--reduced`` deepseek and internvl2 runs'
    shapes (head dims 24 and 16: CUDA-core; deepseek's MTP block at S - 1),
-   each call gated on the design it must take; and the custom op
+   each call gated on the design it must take, and in bf16 also on its
+   error over the output's largest entry (outputs shrink as keys grow); and
+   the custom op
    ``repro_torch::flash_attention`` that every call on the card goes
    through (``hold_op``): its output and gradients against autograd through
    the plain version at the training shape (fp32, bf16) and at phase 21's
@@ -86,12 +95,15 @@ exits non-zero:
     4096 slots), prefill and the training shape, causal (``AttnSpec()``'s
     default) and not, each against SDPA in its own mask form (none, or
     ``is_causal``) and given the mask as a boolean tensor; then the tile
-    kernel's fixed cost and cost per KV tile, full and masked; flash
-    attention at gemma2-2b's training and decode shapes (yardsticks:
-    ``flex_attention`` compiled with its softcap and window, and SDPA
-    without the softcap, labelled so) and at
-    whisper-tiny's encoder and cross-attention decode (SDPA), and at
-    zamba2's, llama4's and deepseek's new shapes (SDPA). The SSD scan's two
+    kernel's fixed cost and cost per KV tile, full and masked, at head_dims
+    64 and 256; flash attention at gemma2-2b's training, prefill and decode
+    (64 and 4096 slots) shapes (yardsticks: ``flex_attention`` compiled with
+    its softcap and window, and SDPA without the softcap, labelled so) and
+    at whisper-tiny's encoder and cross-attention decode (SDPA), and at
+    zamba2's, llama4's and deepseek's new shapes (SDPA); at every head_dim
+    192 or 256 row also the CUDA-core design on the same inputs, the design
+    those head dims took before (``cuda_core_ms``); each flash row is first
+    held to its plain version. The SSD scan's two
     designs at mamba2's and zamba2's training and prefill shapes on the same
     inputs, and the tensor-core kernel's fixed cost and cost per chunk;
     phase 21's shapes, one a kernel; the host cost a call of the flash
@@ -126,7 +138,7 @@ exits non-zero:
     with ``t_measured_sharded`` > 0, the link calibration and the three
     fits run, and the codec kernels launched on the ranks;
 16. full-width gemma2-2b (``lm_serve``, ``lm_train``): served through
-    ``launch.serve.main`` as in phase 6 (1664 CUDA-core flash launches); its
+    ``launch.serve.main`` as in phase 6 (1664 split-KV flash launches); its
     decode loop against a prefill forward, asserted in fp32, its bf16 decode
     steps profiled; trained through ``launch.train.main`` (batch 8, seq 512,
     4 steps of adamw with int8_ef under remat "dots": every block's
@@ -149,9 +161,9 @@ exits non-zero:
     its 48 layers served (split-KV decode, tile prefill) and on 1 trained
     with sgd and no codec; deepseek-v3 on 4 of its 61 (3 dense MLA layers
     and one of 256 experts top-8, plus the MTP head) served, with no
-    launch at decode (MLA's absorbed form) and 4 CUDA-core launches at
-    prefill; the decode-vs-prefill gate at capacity factor E/k, which drops
-    no token. Then the same functions with ``--reduced``: deepseek trained
+    launch at decode (MLA's absorbed form) and 4 tile launches at a bf16
+    prefill (4 CUDA-core in fp32); the decode-vs-prefill gate at capacity
+    factor E/k, which drops no token. Then the same functions with ``--reduced``: deepseek trained
     (its MTP loss reported every step, its aux loss positive, all finite,
     the total falling) and internvl2 served (its decode loop held to a
     prefill without patches, as serving feeds none) and trained (patches
@@ -313,7 +325,7 @@ mamba2, zamba2 and gemma2 (4 steps) where every LM trained 8; phase 20 a
 warm-up and 2 steps where it took 3, and phase 22 (c), on 8 of smollm's
 32 layers (for phase 24's time); one profiled train step where the profiles read 2,
 and mamba2's step profiled once on each SSD design; phase 25's traces in
-a process of their own beside phases 3-24 (the main process runs only (a)'s
+a process of their own beside phases 16-24 (the main process runs only (a)'s
 real steps and (b)'s and (c)'s gates); phase 25 (c)'s fit and phase 27's
 (a, c) in that process after its traces, 27 (b) in phase 14's. No gate was
 dropped.
@@ -492,6 +504,18 @@ def ptxas_usage(log_path):
                 words = line.replace(",", " ").split()
                 out[name]["registers"] = int(words[words.index("registers") - 1])
     return out
+
+
+def flash_registers(ptxas):
+    """{"tile<HD>" / "split_kv<HD>": ptxas usage} of the flash tensor-core
+    kernels' instantiations, from ``ptxas_usage``'s mangled names."""
+    out = {}
+    for name, usage in ptxas.items():
+        for kernel, label in (("flash_fwd_tile_kernelILi", "tile"),
+                              ("flash_fwd_splitkv_kernelILi", "split_kv")):
+            if kernel in name:
+                out[label, int(name.split(kernel)[1].split("E")[0])] = usage
+    return {f"{label}<{hd}>": out[label, hd] for label, hd in sorted(out)}
 
 
 PORTED_KERNELS = (  # (name, substring of its device kernel's name); first wins
@@ -2891,17 +2915,17 @@ GEMM_N, GEMM_RUNS, COPY_BYTES = 8192, 20, 2 ** 30
 
 class DryrunCellsProcess:
     """Phase 25's traces in a process of its own (``python3 chip_smoke.py
-    --dryrun-cells DIR``), started after the build: (a)'s cell first, then
+    --dryrun-cells DIR``), started after phase 13: (a)'s cell first, then
     (b)'s production-mesh cells through ``launch.dryrun.run_all`` (a process
     a cell), all into DIR. Tracing is host work on a core or two, beside
-    phases 3-24, which leave most of the eight idle. Its cell processes
+    phases 22 (a) to 24, which leave most of the eight idle. Its cell processes
     share its session, so that ``stop_children`` ends them with it. Its
     output goes to a file, printed whole by ``finish``."""
 
     def __init__(self):
         print("  phase 25's traces ((a)'s cell, then (b)'s production-mesh cells) start "
-              "in a process of their own beside phases 3-24; its output follows phase "
-              "24", flush=True)
+              "in a process of their own beside phases 22 (a) to 24; its output follows "
+              "phase 24", flush=True)
         self.dir = tempfile.mkdtemp(prefix="dryrun_cells_")
         self.log = tempfile.TemporaryFile(mode="w+")
         self.proc = subprocess.Popen(
@@ -3396,7 +3420,12 @@ def main() -> None:
                                            "build_s")):
                     print("    " + line.strip())
     ptxas = dict(kv for lib in libs for kv in ptxas_usage(lib + ".log").items())
-    cells = DryrunCellsProcess()       # phase 25's traces, beside phases 3-24
+    flash_regs = flash_registers(ptxas)
+    print(f"  flash tensor-core kernels, registers and spills: {json.dumps(flash_regs)}",
+          flush=True)
+    spilled = {k: u for k, u in flash_regs.items() if u["spill_stores"] or u["spill_loads"]}
+    if spilled or len(flash_regs) != 2 * len(FA.TC_HEAD_DIMS):
+        fail(f"flash tile / split-KV instantiations: {flash_regs} (spilled: {spilled})")
 
     # ---- 3. flash attention against plain -------------------------------
     phase("flash_attention kernel vs plain version")
@@ -3481,11 +3510,13 @@ def main() -> None:
                   arange(-8, TRAIN_SEQ - 8), arange(0, TRAIN_SEQ),
                   AttnSpec(causal=True), "tile"))
 
-    # gemma2-2b (head_dim 256: the CUDA-core design in bf16 too) with its
-    # window and softcap: the training shape; decode over the served 64-slot
-    # ring; a prefill over window + 256 keys, where the window bites; a
-    # decode over a 4096-slot ring (slot = position mod 4096) holding
-    # positions 900..4995 for a query at 5000, the oldest 5 past the window.
+    # gemma2-2b (head_dim 256: tile, and split-KV at decode, in bf16) with
+    # its window and softcap: the training shape; decode over the served
+    # 64-slot ring; the served prefill (32 rows: one block of 128, 6 of its
+    # 8 warps idle); a prefill over window + 256 keys, where the window bites;
+    # a decode over a 4096-slot ring (slot = position mod 4096) holding
+    # positions 900..4995 for a query at 5000, the oldest 5 past the window
+    # (16 splits and the combine).
     # whisper-tiny (head_dim 64, bf16 on the tensor-core designs): its
     # encoder (1500 frames, non-causal: ragged 64-row tiles), the decoder's
     # cross-attention over them at prefill (32 rows) and at decode.
@@ -3496,14 +3527,43 @@ def main() -> None:
                       logit_softcap=gfull.attn_logit_softcap)
     gw, t_enc = gfull.attn_window, wfull.encoder_seq_len
     cases.append((f"gemma2_train{TRAIN_SEQ}", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, *g_heads),
-                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), g_spec, "cuda_core"))
+                  *tail_pos(TRAIN_SEQ, TRAIN_SEQ), g_spec, "tile"))
     cases.append((f"gemma2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *g_heads),
-                  *tail_pos(1, PROMPT + GEN), g_spec, "cuda_core"))
+                  *tail_pos(1, PROMPT + GEN), g_spec, "split_kv"))
+    cases.append((f"gemma2_prefill{PROMPT}", (BATCH, PROMPT, PROMPT, *g_heads),
+                  *tail_pos(PROMPT, PROMPT), g_spec, "tile"))
     cases.append((f"gemma2_window_bites_{gw + 256}", (1, 256, gw + 256, *g_heads),
-                  *tail_pos(256, gw + 256), g_spec, "cuda_core"))
+                  *tail_pos(256, gw + 256), g_spec, "tile"))
     cases.append((f"gemma2_ring{gw}_past_window", (BATCH, 1, gw, *g_heads),
                   arange(5000, 5001), torch.cat([arange(gw, 4996), arange(900, gw)]),
-                  g_spec, "cuda_core"))
+                  g_spec, "split_kv"))
+    # The tensor-core designs at head_dims 256 and 192 (8 warps over 128 q
+    # rows, Q read from shared memory): ragged q and kv tiles (200 rows: the
+    # second block's last three warps idle; 328 keys) under a window and a
+    # softcap; a wrapped ring with PAD slots (tile, and split-KV over the
+    # served ring with its empty slots); first rows with no attendable key
+    # (mean(v), 8 or 6 columns a lane); split-KV at 192 over 64 slots (G 1,
+    # MLA's heads) and over 1000 (G 4, 8 splits and the combine).
+    h256, h192 = (gfull.n_heads, gfull.n_kv_heads, 256), (16, 16, 192)
+    cases.append(("tile256_ragged_window_softcap", (2, 200, 328, *h256),
+                  *tail_pos(200, 328), AttnSpec(causal=True, window=48, logit_softcap=50.0),
+                  "tile"))
+    cases.append(("tile256_ring_pad", (1, 80, 256, *h256), arange(300, 380),
+                  torch.cat([arange(320, 380), arange(130, 320),
+                             torch.full((6,), FA.PAD_POS, dtype=torch.int32, device=dev)]),
+                  AttnSpec(causal=True, window=100), "tile"))
+    cases.append(("decode256_ring_pad", (BATCH, 1, PROMPT + GEN, *h256), arange(9, 10), part,
+                  g_spec, "split_kv"))
+    cases.append(("tile256_causal_shift", (2, 130, 130, *h256), arange(-8, 122),
+                  arange(0, 130), AttnSpec(causal=True), "tile"))
+    cases.append(("tile192_causal_shift", (1, 40, 40, 4, 4, 192), arange(-8, 32),
+                  arange(0, 40), AttnSpec(causal=True), "tile"))
+    cases.append(("tile192_noncausal_g1", (1, 96, 160, 4, 4, 192), *tail_pos(96, 160),
+                  AttnSpec(causal=False), "tile"))
+    cases.append((f"decode192_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *h192),
+                  *tail_pos(1, PROMPT + GEN), AttnSpec(), "split_kv"))
+    cases.append(("decode192_ragged_1000_g4", (BATCH, 1, 1000, 8, 2, 192),
+                  *tail_pos(1, 1000), AttnSpec(), "split_kv"))
     cases.append((f"whisper_encoder{t_enc}", (BATCH, t_enc, t_enc, *w_heads),
                   arange(0, t_enc), arange(0, t_enc), AttnSpec(causal=False), "tile"))
     cases.append((f"whisper_cross_prefill{PROMPT}", (BATCH, PROMPT, t_enc, *w_heads),
@@ -3515,8 +3575,8 @@ def main() -> None:
     # training shape (Sq·G = 512: tile) and decode over the served 64-slot
     # cache (split-KV). llama4-scout (40 q over 8 kv heads of 128, G 5): its
     # prefill (Sq·G = 160: tile) and decode (G = 5: split-KV). deepseek-v3's
-    # MLA prefill: 128 heads at qk dim 192, v zero-padded to 192, Hkv = H;
-    # 192 is not a tensor-core head dim, so the CUDA-core design.
+    # MLA prefill: 128 heads at qk dim 192, v zero-padded to 192, Hkv = H:
+    # the tile design (32 rows a block of 128, so 6 of its 8 warps idle).
     zfull, lfull, dfull = get_config(HYBRID_ARCH), get_config(MOE_ARCH), get_config(MLA_ARCH)
     z_heads = (zfull.n_heads, zfull.n_kv_heads, zfull.get_head_dim())
     l_heads = (lfull.n_heads, lfull.n_kv_heads, lfull.get_head_dim())
@@ -3532,7 +3592,7 @@ def main() -> None:
     cases.append((f"llama4_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN, *l_heads),
                   *tail_pos(1, PROMPT + GEN), AttnSpec(), "split_kv"))
     cases.append((f"deepseek_mla_prefill{PROMPT}", (BATCH, PROMPT, PROMPT, *d_heads),
-                  *tail_pos(PROMPT, PROMPT), AttnSpec(), "cuda_core"))
+                  *tail_pos(PROMPT, PROMPT), AttnSpec(), "tile"))
     # nemotron-4-15b (48 q over 8 kv heads of 128, G 6): its prefill (Sq·G =
     # 192: tile) and decode over the served 64-slot cache (G = 6: split-KV)
     nfull = get_config(NEMOTRON_ARCH)
@@ -3586,17 +3646,22 @@ def main() -> None:
             want = {design: 1, **({"split_kv_combine": 1} if splits > 1 else {})}
             designs_seen.update(launched)
             err = (out.float() - ref.float()).abs().max().item()
+            # Over many keys the outputs shrink (about sqrt(e / Skv)), so in
+            # bf16 the error is also held to TOL times the output's largest
+            # entry: a dropped split or a wrong merge shows there.
+            rel = err / max(ref.float().abs().max().item(), 1e-30)
             ok = torch.allclose(out.float(), ref.float(), atol=TOL[dname],
                                 rtol=TOL[dname])
+            ok = ok and (dtype != torch.bfloat16 or rel <= TOL[dname])
             print(f"  {dname:8s} {label:32s} {design:9s} splits {splits:2d} "
-                  f"max_abs_err={err:.3e} tol={TOL[dname]:g} "
+                  f"max_abs_err={err:.3e} err/max|ref|={rel:.3e} tol={TOL[dname]:g} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if launched != want:
                 fail(f"flash_attention {dname} {label} launched {launched}, "
                      f"expected {want}")
             if not ok:
                 fail(f"flash_attention disagrees with its plain version: "
-                     f"{dname} {label} max_abs_err={err}")
+                     f"{dname} {label} max_abs_err={err} err/max|ref|={rel}")
             if dtype == torch.bfloat16 and label == f"decode_cap{PROMPT + GEN}":
                 path_err = err
             del q, k, v, out, ref
@@ -3618,11 +3683,10 @@ def main() -> None:
                                   else (False,))]
     for label, shape, dtype, compiled in op_cases:
         dname = str(dtype).split(".")[-1]
-        B, Sq, Skv, Hq, Hkv, hd = shape
         qkv = [t.requires_grad_(True) for t in inputs(*shape, dtype)]
-        q_pos, kv_pos = tail_pos(Sq, Skv)
+        q_pos, kv_pos = tail_pos(*shape[1:3])
         spec = AttnSpec(causal=True)
-        go = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev).to(dtype)
+        go = torch.randn(qkv[0].shape, generator=gen, device=dev).to(dtype)
         design = FA.plan(qkv[0].shape, qkv[1].shape, dtype, dtype, dtype).variant
         hold_op(torch, TS, f"flash_attention {dname} {label}",
                 lambda q, k, v: FA.attention(q, k, v, q_pos, kv_pos, spec),
@@ -4232,6 +4296,9 @@ def main() -> None:
              tail_pos(TRAIN_SEQ, TRAIN_SEQ)),
             (f"gemma2_decode_cap{PROMPT + GEN}", (BATCH, 1, PROMPT + GEN), g_heads, g_spec,
              tail_pos(1, PROMPT + GEN)),
+            (f"gemma2_prefill{PROMPT}", (BATCH, PROMPT, PROMPT), g_heads, g_spec,
+             tail_pos(PROMPT, PROMPT)),
+            ("gemma2_decode_cap4096", (BATCH, 1, 4096), g_heads, g_spec, tail_pos(1, 4096)),
             (f"whisper_encoder{t_enc}", (BATCH, t_enc, t_enc), w_heads,
              AttnSpec(causal=False), (arange(0, t_enc), arange(0, t_enc))),
             (f"whisper_cross_decode{t_enc}", (BATCH, 1, t_enc), w_heads,
@@ -4271,10 +4338,29 @@ def main() -> None:
                 fail(f"{what} is not the {label} row's function: max_abs_err {err}")
             return err
 
-        row = {"ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
+        out = FA.flash_attention(q, k, v, q_pos, kv_pos, spec)
+        kernel_err = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), atol=TOL["bfloat16"],
+                              rtol=TOL["bfloat16"]):
+            fail(f"flash_attention is not the {label} row's function: "
+                 f"max_abs_err {kernel_err}")
+        del out
+        row = {"max_abs_err": kernel_err,
+               "ms": time_ms(lambda: FA.flash_attention(q, k, v, q_pos, kv_pos, spec)),
                "plain_ms": time_ms(lambda: FA.attention_plain(q, k, v, q_pos, kv_pos, spec)),
                "causal": spec.causal, "window": spec.window,
                "softcap": spec.logit_softcap}
+        before_txt = ""
+        if dh > 128:      # the CUDA-core design these head dims took before
+            core = FA._launch(q, k, v, q_pos, kv_pos, spec, cuda_core=True)
+            if not torch.allclose(core.float(), ref.float(), atol=TOL["bfloat16"],
+                                  rtol=TOL["bfloat16"]):
+                fail(f"the CUDA-core kernel is not the {label} row's function")
+            row["cuda_core_ms"] = time_ms(
+                lambda: FA._launch(q, k, v, q_pos, kv_pos, spec, cuda_core=True))
+            before_txt = (f", before (cuda_core) {row['cuda_core_ms']:.4f} ms "
+                          f"({row['cuda_core_ms'] / row['ms']:.1f}x)")
+            del core
         if spec.logit_softcap:
             no_cap = spec._replace(logit_softcap=0.0)
             sdpa_err = agrees(sdpa, FA.attention_plain(q, k, v, q_pos, kv_pos, no_cap),
@@ -4299,33 +4385,39 @@ def main() -> None:
         rows[label] = row
         print(f"  {label:26s} q [{B},{Sq},{nh},{dh}] kv [{B},{Skv},{nkv},{dh}] bf16 "
               f"causal={spec.causal} window={spec.window} softcap={spec.logit_softcap:g} "
-              f"{design.variant} ({design.n_splits} split): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, {lib_txt}, bound {row['bound_ms']:.6f} ms by "
-              f"{row['bound_by']} ({n_bytes} B, {n_ops} flop), kernel/bound "
-              f"{row['ms'] / row['bound_ms']:.1f}; card {card}", flush=True)
+              f"{design.variant} ({design.n_splits} split): kernel {row['ms']:.4f} ms "
+              f"(|kernel-plain| {kernel_err:.2e})"
+              f"{before_txt}, plain {row['plain_ms']:.4f} ms, {lib_txt}, bound "
+              f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({n_bytes} B, {n_ops} flop), "
+              f"kernel/bound {row['ms'] / row['bound_ms']:.1f}; card {card}", flush=True)
         del q, k, v, qt, kt, vt, ref, mask
 
     # What the tile kernel's time is made of: non-causal calls at the training
     # shape over 1, 8 and 16 KV tiles of 64 keys (a line through them splits a
     # call into a fixed cost and a cost per tile), and over 8 tiles that each
-    # hold one PAD slot, so that every tile takes the masked path.
-    tile_cost = {}
-    for label, skv, pad in (("kv64", 64, False), ("kv512", 512, False),
-                            ("kv1024", 1024, False), ("kv512_masked", 512, True)):
-        q, k, v = inputs(TRAIN_BATCH, TRAIN_SEQ, skv, *t_heads, torch.bfloat16)
-        q_pos, kv_pos = arange(0, TRAIN_SEQ), arange(0, skv)
-        if pad:
-            kv_pos[::64] = FA.PAD_POS
-        tile_cost[label] = time_ms(lambda: FA.flash_attention(
-            q, k, v, q_pos, kv_pos, AttnSpec(causal=False)))
-        del q, k, v
-    slope = (tile_cost["kv1024"] - tile_cost["kv64"]) / 15
-    fixed = tile_cost["kv64"] - slope
-    masked = (tile_cost["kv512_masked"] - fixed) / 8
-    print(f"  tile kernel cost, non-causal q [{TRAIN_BATCH},{TRAIN_SEQ},{t_heads[0]},"
-          f"{t_heads[2]}]: {tile_cost} ms; fixed {fixed:.4f} ms + {slope:.4f} ms per "
-          f"KV tile; masked tiles {masked:.4f} ms per tile; card {card}", flush=True)
-    rows["tile_cost"] = tile_cost
+    # hold one PAD slot, so that every tile takes the masked path; at
+    # smollm's heads (64: 4 warps over 64 rows) and at gemma2's (256: 8 warps
+    # over 128 rows, Q from shared memory).
+    for key, heads in (("tile_cost", t_heads), ("tile_cost_hd256", g_heads)):
+        tile_cost = {}
+        for label, skv, pad in (("kv64", 64, False), ("kv512", 512, False),
+                                ("kv1024", 1024, False), ("kv512_masked", 512, True)):
+            q, k, v = inputs(TRAIN_BATCH, TRAIN_SEQ, skv, *heads, torch.bfloat16)
+            q_pos, kv_pos = arange(0, TRAIN_SEQ), arange(0, skv)
+            if pad:
+                kv_pos[::64] = FA.PAD_POS
+            tile_cost[label] = time_ms(lambda: FA.flash_attention(
+                q, k, v, q_pos, kv_pos, AttnSpec(causal=False)))
+            del q, k, v
+        slope = (tile_cost["kv1024"] - tile_cost["kv64"]) / 15
+        fixed = tile_cost["kv64"] - slope
+        masked = (tile_cost["kv512_masked"] - fixed) / 8
+        print(f"  tile kernel cost, non-causal q [{TRAIN_BATCH},{TRAIN_SEQ},{heads[0]},"
+              f"{heads[2]}] over {heads[1]} kv heads: {tile_cost} ms; fixed {fixed:.4f} ms + "
+              f"{slope:.4f} ms per KV tile; masked tiles {masked:.4f} ms per tile; card {card}",
+              flush=True)
+        rows[key] = {**tile_cost, "fixed_ms": fixed, "per_tile_ms": slope,
+                     "masked_per_tile_ms": masked}
 
     # Codec kernels at the largest tensor the train step hands them, the
     # embedding's grad [vocab, d_model] in fp32 (one launch each).
@@ -4523,16 +4615,19 @@ def main() -> None:
           f"{bwd_ms * mfull.n_layers:.1f} ms/step; card {card}", flush=True)
     del ins, y, go
 
+    # Phase 25's traces start here, in a process of their own, and not beside
+    # phases 3-13: the SSD backward timed just above (the plain recompute under
+    # autograd at mamba2's training shape) takes all but a few hundred MB of
+    # the card, and a cell's process that made its CUDA context then ran out
+    # of memory. Phase 25 (a) reads the first trace after phase 26.
+    cells = DryrunCellsProcess()
+
     # ---- 22 (a). the plan CLI's dry run ------------------------------------------
     plan_blob = planner_plan_phase(dev, card)
 
     # phase 15's pool starts now, its ranks' start-up beside phases 16-19
     opening = OpeningPool(SHARDED_WORLD, dev)
     paper = []              # phase 14's process, started after phase 15
-
-    # ---- 25 (a). one cell traced, then run on the card -------------------------
-    dry_counts, dry_designs, dry_numbers = dryrun_step_phase(torch, dev, card, env,
-                                                             cells.traced_step())
 
     # ---- 16. gemma2-2b, 17. whisper-tiny ----------------------------------------
     def lm_paths(*results):
@@ -4566,6 +4661,10 @@ def main() -> None:
     # ---- 26. nemotron-4-15b served at full width ---------------------------------
     nemotron_paths, nemotron_numbers = nemotron_phase(torch, dev, card, env)
     lm_paths(nemotron_paths)
+
+    # ---- 25 (a). one cell traced, then run on the card -------------------------
+    dry_counts, dry_designs, dry_numbers = dryrun_step_phase(torch, dev, card, env,
+                                                             cells.traced_step())
 
     # ---- 15. sharded pipeline; 22 (b). two picks measured on its pool; --------
     # ---- 23 (b). fp32 sharded serving; 20. the sharded LM train step; 21. the --
@@ -4690,6 +4789,7 @@ def main() -> None:
         "ms": path["ms"], "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"], "op_dispatch": rows["op_dispatch"],
+        "registers": flash_regs,
         "rows": {k: r for k, r in rows.items()
                  if k.startswith(("decode_", "prefill", "train", "tile_cost",
                                   "gemma2_", "whisper_", "zamba2_", "llama4_",

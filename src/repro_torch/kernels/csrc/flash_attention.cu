@@ -10,35 +10,55 @@
 // running max starts at -inf, as in the reference, so a wholly masked row
 // yields mean(v) over all Skv like attend_naive.
 //
-// Three designs; `plan()` in kernels/flash_attention.py picks one per call:
+// Three designs; `plan()` in kernels/flash_attention.py picks one per call.
+// The two tensor-core designs take bf16 q and k/v at head_dim 64, 128, 192
+// and 256; everything else goes to the CUDA-core design.
 //
-// 1. Tile kernel (`flash_fwd_tile_kernel`): bf16 q and k/v, head_dim 64 or
-//    128, more than 16 q rows per kv head (Sq * G > 16): training (smollm,
-//    q [8,512,15,64], causal) and prefill (qwen, q [4,32,16,128]). Bound by
-//    bytes on the H100: 21.0 MB of q/k/v/out at the training shape, 6.3 us at
-//    3.35 TB/s, against 4.1 us of bf16 tensor-core operations when causal
-//    (8.1 us when not); prefill 0.66 MB, 0.2 us. A block of 4 warps owns 64
-//    q rows of one (b, hq), 16 rows a warp, its Q fragments in registers.
-//    K/V tiles of 64 rows stay bf16 in shared memory, double-buffered with
-//    16-byte cp.async so the next tile's copy overlaps this tile's products;
-//    rows are padded by 16 bytes so ldmatrix reads them without bank
-//    conflicts. S = Q K^T and O += P V run on tensor cores
-//    (mma.sync m16n8k16 bf16 -> fp32, V through ldmatrix.trans); P is rounded
-//    to bf16 in registers and reused as the A operand; row max and sum use
-//    quad shuffles. Scores are kept in log2 units, so a probability is one
-//    FFMA and one ex2. A KV tile is skipped when every pair in it is masked,
-//    and takes no mask at all when every pair is attendable, both judged from
-//    positions (never indices: a ring cache is unsorted). A row that saw no
-//    attendable key takes mean(v) over all Skv in the epilogue. What holds it
-//    back is not its copies but the latency of each warp's chain of products
-//    and softmax: 16 rows a warp and one barrier a tile leave little to
-//    overlap (PERF.md).
+// 1. Tile kernel (`flash_fwd_tile_kernel`): more than 16 q rows per kv head
+//    (Sq * G > 16): training (smollm q [8,512,15,64]; gemma2 q [8,512,8,256],
+//    window 4096, softcap 50) and prefill (qwen q [4,32,16,128]; MLA q
+//    [4,32,128,192], Hkv = H). Bound by bytes on the H100: 21.0 MB of
+//    q/k/v/out at smollm's training shape, 6.3 us at 3.35 TB/s, against 4.1
+//    us of bf16 tensor-core operations when causal (8.1 us when not); 50.3 MB
+//    at gemma2's, 15.0 us, against 8.7 us of operations causal; the MLA
+//    prefill 25.2 MB, 7.5 us; qwen's prefill 0.66 MB, 0.2 us. A block of W
+//    warps owns 16 W q rows of one (b, hq), 16 rows a warp. K/V tiles of 64
+//    rows stay bf16 in shared memory, double-buffered with 16-byte cp.async
+//    so the next tile's copy overlaps this tile's products; rows are padded
+//    by 16 bytes (HD + 8 bf16: 144, 272, 400 and 528 B, all 16 mod 128) so
+//    ldmatrix reads them without bank conflicts. S = Q K^T and O += P V run
+//    on tensor cores (mma.sync m16n8k16 bf16 -> fp32, V through
+//    ldmatrix.trans); P is rounded to bf16 in registers and reused as the A
+//    operand; row max and sum use quad shuffles. Scores are kept in log2
+//    units, so a probability is one FFMA and one ex2. A KV tile is skipped
+//    when every pair in it is masked, and takes no mask at all when every
+//    pair is attendable, both judged from positions (never indices: a ring
+//    cache is unsorted). A row that saw no attendable key takes mean(v) over
+//    all Skv in the epilogue.
+//    At head_dim 64 and 128 a block is 4 warps (64 q rows) and each thread
+//    holds its Q fragments in registers; what holds it back is not its
+//    copies but the latency of each warp's chain of products and softmax: 16
+//    rows a warp and one barrier a tile leave little to overlap (PERF.md).
+//    At head_dim 192 and 256 a thread's O accumulator alone is 96 and 128
+//    fp32 registers, and its Q fragments would add 48 and 64: so Q stays in
+//    shared memory, and each 16-wide k-step of S = Q K^T loads its fragment
+//    by ldmatrix (at 256, 16 of a warp's 144 ldmatrix a K/V tile), leaving
+//    O, S (32), m and l in registers: 255 with no spill (`-Xptxas -v`,
+//    PERF.md). A block is 8 warps over 128 q rows that share each K/V stage
+//    (a warp whose 16 rows all lie past Sq does no products): 2 stages of
+//    64-row K and V tiles and the Q tile take 203 KB at 256 (153.6 KB at 192)
+//    of the 227 KB a block may have, and 256 threads of 255 registers fill
+//    the register file, so one block an SM, 8 warps, and each K/V tile is
+//    read from memory once per 128 q rows. The other layout that fits, 4
+//    warps over 64 rows with 32-key tiles in three stages, keeps 4 warps an
+//    SM and reads each K/V tile twice as often for the same products.
 //
 // 2. Split-KV decode kernel (`flash_fwd_splitkv_kernel`, then
-//    `flash_fwd_combine_kernel` when there is more than one split): bf16,
-//    head_dim 64 or 128, Sq * G <= 16 (decode: qwen q [4,1,16,128] over 2 kv
-//    heads). Bound by the bytes of K and V: 0.29 MB at a 64-slot cache (0.09
-//    us: the launch bounds it), 16.8 MB at 4096 slots (5.0 us). One block per
+//    `flash_fwd_combine_kernel` when there is more than one split):
+//    Sq * G <= 16 (decode: qwen q [4,1,16,128] over 2 kv heads; gemma2 q
+//    [4,1,8,256] over 4). Bound by the bytes of K and V: 0.29 MB at qwen's
+//    64-slot cache (0.09 us: the launch bounds it), 16.8 MB at 4096 slots
+//    (5.0 us); gemma2's 64 slots 1.1 MB (0.3 us). One block of 4 warps per
 //    (split, b, hkv) packs the G q heads (x Sq) of its kv head into the 16
 //    rows of one mma tile, so K/V are read once per kv head, not G times. The
 //    wrapper splits the keys so that the card gets about two blocks per SM;
@@ -47,15 +67,18 @@
 //    (row, b * Hkv), weights split i by exp(m_i - max m) (0 for a split with
 //    no key at all, whose m is -inf; a split of masked keys has m = NEG_INF
 //    and counts). One split writes the output directly, with no combine
-//    launch.
+//    launch. At head_dim 192 and 256, Q stays in shared memory as in the tile
+//    kernel; the 16 Q rows and two stages of K and V take 144 KB at 256, and
+//    the warps' merge (64 KB of fp32 partials at 256) reuses the K/V stages.
 //
 // 3. CUDA-core kernel (`flash_fwd_kernel`): the fp32 path, for fp32 q or k/v
 //    (TF32 products would miss the fp32 tolerance of 2e-5) and for head dims
-//    the tensor-core kernels do not take (8, 24, 32, ...). Each block stages a
-//    16-row q tile and 64-row K/V tiles in fp32 shared memory (16-byte loads,
-//    8 in flight) and computes on CUDA cores. Bound, like the others, by
-//    bytes; it is far from them (fp32 FMAs reading operands from shared
-//    memory), which is why bf16 never comes here at head_dim 64 or 128.
+//    the tensor-core kernels do not take (8, 24, 32, 96, 160, ...). Each
+//    block stages a 16-row q tile and 64-row K/V tiles in fp32 shared memory
+//    (16-byte loads, 8 in flight) and computes on CUDA cores. Bound, like the
+//    others, by bytes; it is far from them (fp32 FMAs reading operands from
+//    shared memory: 385x its bound at gemma2's training shape, PERF.md), which
+//    is why bf16 never comes here at head_dim 64, 128, 192 or 256.
 //
 // Layout: q [B,Sq,Hq,hd], k/v [B,Skv,Hkv,hd], out [B,Sq,Hq,hd], each with unit
 // stride in hd and any other strides that keep rows 16-byte aligned.
@@ -67,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -311,7 +336,7 @@ cudaError_t launch_cuda_core(const Args& a, int B, cudaStream_t stream) {
 // Tensor-core kernels: shared tiles (building blocks in mma_sm90.cuh)
 // ===========================================================================
 
-constexpr int kRows = 64;        // q rows of a tile block; kv rows of a K/V tile
+constexpr int kRows = 64;        // kv rows of a K/V tile
 constexpr int kDecodeRows = 16;  // q rows of a split-KV block: one mma tile
 
 // Shared-memory rows of head_dim bf16 plus 16 bytes: consecutive rows start 16
@@ -406,23 +431,40 @@ __device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&o)[NO][4
 }
 
 // Copy `n` K and V rows starting at row kv0 (and their positions) into one
-// stage; rows n..63 are zero-filled, so a slot past the keys adds 0 * 0. Each
-// thread copies the same column chunk of every (kThreads / chunks)-th row, so
-// the loop unrolls with no division and one address step per row.
-template <int HD>
+// stage, with NT threads; rows n..63 are zero-filled, so a slot past the keys
+// adds 0 * 0. Where NT is a multiple of a row's chunks (head_dim 64, 128,
+// 256), each thread copies the same column chunk of every (NT / chunks)-th
+// row, so the loop unrolls with no division and one address step per row; at
+// 192 (24 chunks a row) the threads walk the tile's chunks in order. The walk
+// alone, at every head dim, is slower at 64, 128 and 256 and spills in
+// tile<64>, tile<256> and split_kv<256> (repro_torch.tools.flash_copy_ab
+// times both builds in turns; PERF.md has the times).
+template <int HD, int NT>
 __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs, int* ps, const bf16* kg,
                                         const bf16* vg, int kv0, int n, const Args& a) {
   using T = Tiles<HD>;
-  constexpr int kStep = kThreads / T::kChunks;  // rows apart
-  const int r0 = threadIdx.x / T::kChunks, d = (threadIdx.x % T::kChunks) * 8;
-  const bf16* kr = kg + (kv0 + r0) * a.k_ss + d;
-  const bf16* vr = vg + (kv0 + r0) * a.v_ss + d;
+  if constexpr (NT % T::kChunks == 0) {
+    constexpr int kStep = NT / T::kChunks;  // rows apart
+    const int r0 = threadIdx.x / T::kChunks, d = (threadIdx.x % T::kChunks) * 8;
+    const bf16* kr = kg + (kv0 + r0) * a.k_ss + d;
+    const bf16* vr = vg + (kv0 + r0) * a.v_ss + d;
 #pragma unroll
-  for (int u = 0; u < kRows / kStep; ++u) {
-    const int r = r0 + u * kStep;
-    const bool in = r < n;  // else a zero fill from a valid address
-    cp_async16(ks + r * T::kPitch + d, in ? kr + u * kStep * a.k_ss : kg, in);
-    cp_async16(vs + r * T::kPitch + d, in ? vr + u * kStep * a.v_ss : vg, in);
+    for (int u = 0; u < kRows / kStep; ++u) {
+      const int r = r0 + u * kStep;
+      const bool in = r < n;  // else a zero fill from a valid address
+      cp_async16(ks + r * T::kPitch + d, in ? kr + u * kStep * a.k_ss : kg, in);
+      cp_async16(vs + r * T::kPitch + d, in ? vr + u * kStep * a.v_ss : vg, in);
+    }
+  } else {
+    static_assert(kRows * T::kChunks % NT == 0, "a K/V tile's chunks split evenly");
+#pragma unroll
+    for (int u = 0; u < kRows * T::kChunks / NT; ++u) {
+      const int c = threadIdx.x + u * NT;
+      const int r = c / T::kChunks, d = (c % T::kChunks) * 8;
+      const bool in = r < n;
+      cp_async16(ks + r * T::kPitch + d, in ? kg + (kv0 + r) * a.k_ss + d : kg, in);
+      cp_async16(vs + r * T::kPitch + d, in ? vg + (kv0 + r) * a.v_ss + d : vg, in);
+    }
   }
   if (threadIdx.x < kRows) {
     const int r = threadIdx.x;
@@ -430,19 +472,45 @@ __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs, int* ps, const bf16*
   }
 }
 
-// Q fragments of 16 rows starting at shared row r0, for every 16 columns.
+// The A operand of S = Q K^T for a warp's 16 q rows, starting at shared row
+// r0, one 16-column k-step at a time. Up to head_dim 128 the fragments of
+// every k-step are loaded once into registers (QRegs); above it they would
+// not fit beside O, so each k-step reads its fragment from shared memory by
+// ldmatrix (QShared).
 template <int HD>
-__device__ __forceinline__ void load_q_frags(unsigned (&qf)[HD / 16][4], const bf16* q_s,
-                                             int r0, int lane) {
-  const bf16* p = q_s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Tiles<HD>::kPitch +
-                  (lane >> 4) * 8;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) ldsm_x4(qf[ks], p + ks * 16);
+__device__ __forceinline__ const bf16* q_frag_addr(const bf16* q_s, int r0, int lane) {
+  return q_s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Tiles<HD>::kPitch + (lane >> 4) * 8;
 }
+
+template <int HD>
+struct QRegs {
+  unsigned f[HD / 16][4];
+  __device__ __forceinline__ void load(const bf16* q_s, int r0, int lane) {
+    const bf16* p = q_frag_addr<HD>(q_s, r0, lane);
+#pragma unroll
+    for (int ks = 0; ks < HD / 16; ++ks) ldsm_x4(f[ks], p + ks * 16);
+  }
+  __device__ __forceinline__ void get(unsigned (&a)[4], int ks) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = f[ks][i];
+  }
+};
+
+template <int HD>
+struct QShared {
+  const bf16* p;
+  __device__ __forceinline__ void load(const bf16* q_s, int r0, int lane) {
+    p = q_frag_addr<HD>(q_s, r0, lane);
+  }
+  __device__ __forceinline__ void get(unsigned (&a)[4], int ks) const { ldsm_x4(a, p + ks * 16); }
+};
+
+template <int HD>
+using QOperand = typename std::conditional<(HD <= 128), QRegs<HD>, QShared<HD>>::type;
 
 // s[n] (n < 2*NP) = Q K^T over the 8 keys of n-tile n, keys from shared row k0.
 template <int HD, int NP>
-__device__ __forceinline__ void qk(float (&s)[2 * NP][4], const unsigned (&qf)[HD / 16][4],
+__device__ __forceinline__ void qk(float (&s)[2 * NP][4], const QOperand<HD>& q,
                                    const bf16* ks, int k0, int lane) {
 #pragma unroll
   for (int n = 0; n < 2 * NP; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
@@ -450,12 +518,14 @@ __device__ __forceinline__ void qk(float (&s)[2 * NP][4], const unsigned (&qf)[H
                   ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int ks_ = 0; ks_ < HD / 16; ++ks_) {
+    unsigned qa[4];
+    q.get(qa, ks_);
 #pragma unroll
     for (int np = 0; np < NP; ++np) {
       unsigned b[4];
       ldsm_x4(b, p + np * 16 * Tiles<HD>::kPitch + ks_ * 16);
-      mma_bf16(s[2 * np], qf[ks_], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qf[ks_], b[2], b[3]);
+      mma_bf16(s[2 * np], qa, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qa, b[2], b[3]);
     }
   }
 }
@@ -488,29 +558,39 @@ __device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&s)[NT][4
 // wait on its copies.
 constexpr int kTileStages = 2;
 
-// Blocks per SM the kernel is compiled for, which caps its registers: at
-// head_dim 64, 4 blocks (128 registers, a few bytes spilled) ran faster than
-// the 3 that its uncapped registers allow; at 128 a cap spills the
-// accumulator.
-__host__ __device__ constexpr int tile_min_blocks(int hd) { return hd == 64 ? 4 : 1; }
+// A tile block's shape by head_dim: W warps over 16 W q rows, and the blocks
+// per SM it is compiled for, which caps its registers. At head_dim 64, 4
+// blocks (128 registers, no spill) ran faster than the 3 that its uncapped
+// registers allow (168); at 128 a cap spills the accumulator. At 192 and 256
+// shared memory allows one block an SM, so it takes 8 warps (the note at the
+// top).
+template <int HD>
+struct TileShape {
+  static constexpr int kWarps = HD > 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowsQ = 16 * kWarps;  // q rows of a block
+  static constexpr int kMinBlocks = HD == 64 ? 4 : 1;
+};
 
 // Shared memory: Q tile, K and V tiles x kTileStages (bf16, padded rows), kv
 // positions x kTileStages, the count and list of KV tiles to visit.
 template <int HD>
 size_t tile_smem_bytes(int Skv) {
   const int ntiles = (Skv + kRows - 1) / kRows;
-  return (1 + 2 * kTileStages) * Tiles<HD>::kTile * sizeof(bf16) +
+  return (TileShape<HD>::kRowsQ * Tiles<HD>::kPitch + 2 * kTileStages * Tiles<HD>::kTile) *
+             sizeof(bf16) +
          (kTileStages * kRows + 1 + ntiles) * sizeof(int);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
+__global__ void __launch_bounds__(TileShape<HD>::kThreads, TileShape<HD>::kMinBlocks)
     flash_fwd_tile_kernel(const Args a) {
   using T = Tiles<HD>;
+  using S = TileShape<HD>;
   constexpr int P = T::kPitch;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* k_s = q_s + T::kTile;
+  bf16* k_s = q_s + S::kRowsQ * P;
   bf16* v_s = k_s + kTileStages * T::kTile;
   int* kvpos_s = reinterpret_cast<int*>(v_s + kTileStages * T::kTile);
   int* count_s = kvpos_s + kTileStages * kRows;
@@ -520,15 +600,19 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
   const int g = lane / 4, t = lane % 4;
   const int b = blockIdx.x / a.Hq, hq = blockIdx.x % a.Hq;
   const int hkv = hq / (a.Hq / a.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest causal rows first
-  const int nq = min(kRows, a.Sq - q0);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * S::kRowsQ;  // longest causal rows first
+  const int nq = min(S::kRowsQ, a.Sq - q0);
+  // At 192 and 256 a warp whose rows all lie past Sq skips the products (the
+  // MLA prefill's 32 rows leave 6 of 8 warps with none); at 64 and 128 the
+  // test made the kernel slower on the card (PERF.md), so it is not compiled.
+  const bool idle = HD > 128 && warp * 16 >= nq;
   const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + hq * a.q_sh + q0 * a.q_ss;
   const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb + hkv * a.k_sh;
   const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb + hkv * a.v_sh;
   bf16* og = static_cast<bf16*>(a.out) + b * a.o_sb + hq * a.o_sh + q0 * a.o_ss;
 
   // The Q tile joins the first copy group; rows past Sq are zero.
-  for (int c = tid; c < kRows * T::kChunks; c += kThreads) {
+  for (int c = tid; c < S::kRowsQ * T::kChunks; c += S::kThreads) {
     const int r = c / T::kChunks, d = (c % T::kChunks) * 8;
     cp_async16(q_s + r * P + d, qg + (r < nq ? r : 0) * a.q_ss + d, r < nq);
   }
@@ -546,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
   // A live tile whose every pair is attendable (all 64 slots keys, none PAD,
   // all inside the mask for every row) is "full": it needs no mask at all.
   const int ntiles = (a.Skv + kRows - 1) / kRows;
-  for (int tile = warp; tile < ntiles; tile += kWarps) {
+  for (int tile = warp; tile < ntiles; tile += S::kWarps) {
     int kmin = INT_MAX, kmax = INT_MIN, kmax_all = INT_MIN;  // kmax: non-PAD slots
     for (int j = lane; j < kRows; j += 32) {
       const int idx = tile * kRows + j;
@@ -586,24 +670,20 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
   __syncthreads();
   const int n_visit = *count_s;
 
-  int qp[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) qp[h] = a.q_pos[q0 + min(warp * 16 + g + 8 * h, nq - 1)];
-
   // Tile i of the list goes to stage i % kTileStages, in copy group i (Q joins
   // group 0); kTileStages - 1 tiles are in flight before the first product.
   auto issue = [&](int i) {
     if (i < n_visit) {
       const int kv0 = (list_s[i] >> 1) * kRows, st = i % kTileStages;
-      load_kv<HD>(k_s + st * T::kTile, v_s + st * T::kTile, kvpos_s + st * kRows, kg, vg,
-                  kv0, min(kRows, a.Skv - kv0), a);
+      load_kv<HD, S::kThreads>(k_s + st * T::kTile, v_s + st * T::kTile,
+                               kvpos_s + st * kRows, kg, vg, kv0, min(kRows, a.Skv - kv0), a);
     }
     cp_async_commit();
   };
 #pragma unroll
   for (int i = 0; i < kTileStages - 1; ++i) issue(i);
 
-  unsigned qf[HD / 16][4];
+  QOperand<HD> qf;
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -613,7 +693,8 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
     cp_async_wait<kTileStages - 2>();  // tile i (and Q) have landed
     __syncthreads();  // for every thread; and tile i - 1's stage is free again
     issue(i + kTileStages - 1);
-    if (i == 0) load_q_frags<HD>(qf, q_s, warp * 16, lane);
+    if (idle) continue;
+    if (i == 0) qf.load(q_s, warp * 16, lane);
     const int st = i % kTileStages;
     const bf16* ks = k_s + st * T::kTile;
     const bf16* vs = v_s + st * T::kTile;
@@ -626,6 +707,11 @@ __global__ void __launch_bounds__(kThreads, tile_min_blocks(HD))
     if ((entry & 1) && a.softcap == 0.f) {
       softmax_step(s, o, m, l, a.scale * kLog2e);
     } else {
+      // The positions of rows g and g + 8, read here rather than held across
+      // the loop: at head_dim 64 that keeps 128 registers free of spills.
+      int qp[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) qp[h] = a.q_pos[q0 + min(warp * 16 + g + 8 * h, nq - 1)];
       mask_scores(s, 0, nk, ps, qp, t, a);
       softmax_step(s, o, m, l, 1.f);
     }
@@ -689,8 +775,9 @@ cudaError_t launch_tile(const Args& a, int B, cudaStream_t stream) {
       flash_fwd_tile_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * a.Hq, (a.Sq + kRows - 1) / kRows);
-  flash_fwd_tile_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
+  constexpr int kRowsQ = TileShape<HD>::kRowsQ;
+  const dim3 grid(B * a.Hq, (a.Sq + kRowsQ - 1) / kRowsQ);
+  flash_fwd_tile_kernel<HD><<<grid, TileShape<HD>::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -742,14 +829,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_splitkv_kernel(const Args 
     const int r = c / T::kChunks, d = (c % T::kChunks) * 8;
     cp_async16(q_s + r * P + d, qg + q_row_offset(a, b, hkv, r < R ? r : 0) + d, r < R);
   }
-  if (nchunks > 0) load_kv<HD>(k_s, v_s, kvpos_s, kg, vg, k0, min(kRows, k1 - k0), a);
+  if (nchunks > 0)
+    load_kv<HD, kThreads>(k_s, v_s, kvpos_s, kg, vg, k0, min(kRows, k1 - k0), a);
   cp_async_commit();
 
   int qp[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) qp[h] = a.q_pos[min(g + 8 * h, R - 1) / G];
 
-  unsigned qf[HD / 16][4];
+  QOperand<HD> qf;
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -758,13 +846,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_splitkv_kernel(const Args 
   for (int i = 0; i < nchunks; ++i) {
     if (i + 1 < nchunks) {
       const int kv0 = k0 + (i + 1) * kRows, st = (i + 1) & 1;
-      load_kv<HD>(k_s + st * T::kTile, v_s + st * T::kTile, kvpos_s + st * kRows, kg, vg,
-                  kv0, min(kRows, k1 - kv0), a);
+      load_kv<HD, kThreads>(k_s + st * T::kTile, v_s + st * T::kTile, kvpos_s + st * kRows,
+                            kg, vg, kv0, min(kRows, k1 - kv0), a);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (i == 0) load_q_frags<HD>(qf, q_s, 0, lane);
+    if (i == 0) qf.load(q_s, 0, lane);
     const int st = i & 1;
     const int nk = min(kRows, k1 - (k0 + i * kRows));
     const int* ps = kvpos_s + st * kRows;
@@ -923,16 +1011,28 @@ extern "C" int flash_attention_forward(
   a.n_splits = n_splits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16_in = q_dtype == 1 && kv_dtype == 1;
-  if (variant == 1 && bf16_in && hd == 64) return static_cast<int>(launch_tile<64>(a, B, s));
-  if (variant == 1 && bf16_in && hd == 128) return static_cast<int>(launch_tile<128>(a, B, s));
+  if (variant == 1) {
+    if (!bf16_in) return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64: return static_cast<int>(launch_tile<64>(a, B, s));
+      case 128: return static_cast<int>(launch_tile<128>(a, B, s));
+      case 192: return static_cast<int>(launch_tile<192>(a, B, s));
+      case 256: return static_cast<int>(launch_tile<256>(a, B, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if (variant == 2) {
     if (!bf16_in || Sq * (Hq / Hkv) > kDecodeRows || n_splits < 1 || split_len < 1 ||
         n_splits * sizeof(float) > 48 * 1024 ||
         (n_splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
       return static_cast<int>(cudaErrorInvalidValue);
-    if (hd == 64) return static_cast<int>(launch_splitkv<64>(a, B, s));
-    if (hd == 128) return static_cast<int>(launch_splitkv<128>(a, B, s));
-    return static_cast<int>(cudaErrorInvalidValue);
+    switch (hd) {
+      case 64: return static_cast<int>(launch_splitkv<64>(a, B, s));
+      case 128: return static_cast<int>(launch_splitkv<128>(a, B, s));
+      case 192: return static_cast<int>(launch_splitkv<192>(a, B, s));
+      case 256: return static_cast<int>(launch_splitkv<256>(a, B, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;

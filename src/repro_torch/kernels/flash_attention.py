@@ -9,13 +9,16 @@ edited source is rebuilt), and loaded with ``ctypes``.
 
 Three designs share one C entry; ``plan`` picks one per call from shapes and
 dtypes alone (so it runs the same on the CPU):
-- ``tile``: bf16, head_dim 64 or 128, more than 16 q rows per kv head
-  (training, prefill): tensor-core tiles of 64 q rows;
-- ``split_kv``: bf16, head_dim 64 or 128, at most 16 q rows per kv head
+- ``tile``: bf16, head_dim 64, 128, 192 or 256 (``TC_HEAD_DIMS``), more than
+  16 q rows per kv head (training, prefill): tensor-core tiles of 64 q rows
+  (4 warps) at head_dim 64 and 128, of 128 q rows (8 warps sharing each K/V
+  tile, Q read from shared memory at each k-step) at 192 and 256;
+- ``split_kv``: bf16, the same head dims, at most 16 q rows per kv head
   (decode): the keys split over blocks, then ``split_kv_combine`` when
   there is more than one split;
 - ``cuda_core``: everything else the kernels take (fp32 q or k/v, other head
   dims): fp32 products on CUDA cores.
+Every design reads K/V in tiles of ``KV_TILE`` keys, whatever the head dim.
 
 ``flash_attention`` launches on CUDA tensors and raises on any other;
 ``attention_plain`` is the O(Sq·Skv) PyTorch counterpart of the reference's
@@ -48,7 +51,7 @@ NVCC_FLAGS = nvcc.NVCC_FLAGS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 VARIANTS = ("cuda_core", "tile", "split_kv", "split_kv_combine")
-TC_HEAD_DIMS = (64, 128)     # head dims of the tensor-core kernels
+TC_HEAD_DIMS = (64, 128, 192, 256)   # head dims of the tensor-core kernels
 DECODE_ROWS = 16             # q rows of a split-KV block: Sq * G at most this
 KV_TILE = 64                 # keys per K/V tile; a split is a multiple of it
 MIN_SPLIT = 128              # fewest keys a split takes
@@ -256,8 +259,19 @@ def flash_attention(q, k, v, q_pos, kv_pos, spec) -> torch.Tensor:
     Launches the kernel ``plan`` picks on PyTorch's current stream and
     returns [B,Sq,Hq,hd] in q's dtype. Raises for tensors that are not on a
     CUDA device or that no kernel takes."""
+    return _launch(q, k, v, q_pos, kv_pos, spec)
+
+
+def _launch(q, k, v, q_pos, kv_pos, spec, cuda_core: bool = False) -> torch.Tensor:
+    """``flash_attention``, or with ``cuda_core`` the CUDA-core design (which
+    takes every shape the others do) in place of ``plan``'s. chip_smoke.py is
+    the only caller that asks for it: it times that design beside a
+    tensor-core one on the same inputs. Raises if the kernel refuses the
+    launch. Counts the launch."""
     global LAUNCHES
     p = _check(q, k, v, q_pos, kv_pos)
+    if cuda_core:
+        p = Plan("cuda_core")
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
